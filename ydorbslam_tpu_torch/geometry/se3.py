@@ -1,0 +1,109 @@
+"""SE(3) tangent-space operations on torch tensors.
+
+Port of ``ydorbslam_tpu/geometry/se3.py`` (the subset the tracking
+slice uses).  Same conventions:
+
+  * A pose is a 4x4 homogeneous matrix ``T = [[R, t], [0, 1]]``.
+  * Camera poses are world-to-camera (``T_cw``).
+  * A twist is ``xi = [rho, phi]``, translation first;
+    ``exp(xi) = [[exp([phi]x), V(phi) rho], [0, 1]]``.
+
+All functions broadcast over leading batch dimensions and keep the
+input's dtype and device.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+
+
+def hat(phi: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator: (..., 3) -> (..., 3, 3) skew-symmetric."""
+    x, y, z = phi[..., 0], phi[..., 1], phi[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _eye_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula with small-angle Taylor guards. (...,3)->(...,3,3)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    K = hat(phi)
+    K2 = K @ K
+    return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * K2
+
+
+def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """SO(3) left Jacobian V(phi) such that exp-se3 t-part = V rho."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(
+        small, 1.0 / 6.0 - theta2 / 120.0,
+        (theta - torch.sin(theta)) / (theta2 * theta),
+    )
+    K = hat(phi)
+    K2 = K @ K
+    return _eye_like(K) + b[..., None, None] * K + c[..., None, None] * K2
+
+
+def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble (...,4,4) from (...,3,3) rotation and (...,3) translation."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """exp: (...,6) twist [rho, phi] -> (...,4,4) homogeneous transform."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = so3_exp(phi)
+    t = (_left_jacobian(phi) @ rho[..., None])[..., 0]
+    return make_T(R, t)
+
+
+def inv_T(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid transform without a general 4x4 solve."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    return make_T(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def orthonormalize_T(T: torch.Tensor) -> torch.Tensor:
+    """Project the rotation block back onto SO(3) (Gram-Schmidt).
+
+    The tracking state's pose feeds a multiplicative feedback loop
+    (velocity = T_new inv(T_last); prediction = velocity T_last) whose
+    orthogonality defect roughly doubles every frame in float32; one
+    projection per pose solve keeps the chain on the manifold (see the
+    JAX module's docstring for the measurement).
+    """
+    R = T[..., :3, :3]
+    c0 = R[..., :, 0]
+    c0 = c0 / torch.clamp(torch.linalg.norm(c0, dim=-1, keepdim=True), min=1e-12)
+    c1 = R[..., :, 1]
+    c1 = c1 - torch.sum(c0 * c1, dim=-1, keepdim=True) * c0
+    c1 = c1 / torch.clamp(torch.linalg.norm(c1, dim=-1, keepdim=True), min=1e-12)
+    c2 = torch.linalg.cross(c0, c1, dim=-1)
+    Rn = torch.stack([c0, c1, c2], dim=-1)
+    return make_T(Rn, T[..., :3, 3])

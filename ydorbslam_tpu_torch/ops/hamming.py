@@ -1,0 +1,128 @@
+"""Packed-descriptor Hamming distances, the rotation histogram, and the
+K2 gated best/second search with its dispatcher.
+
+Port of ``ydorbslam_tpu/ops/hamming.py`` plus the contract of
+``ydorbslam_tpu/ops/pallas_kernels.py::proj_best2_pallas``.
+
+PyTorch has no popcount operator: the plain distance XORs the int32
+words, widens to int64 with ``& 0xFFFFFFFF`` and counts bits with the
+SWAR sequence, which is exact for every 32-bit pattern.
+
+``proj_best2`` is K2: for every a-row, the best and second-best gated
+Hamming distance and the best column, for a narrow and a wide radius,
+from one pass.  A CUDA tensor launches the CUDA kernel
+(``csrc/proj_best2.cu``); a CPU tensor takes ``proj_best2_plain``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .select import stable_topk
+
+INVALID_DIST = 10_000  # sentinel > any Hamming distance (max 256)
+
+# a_attr lanes: [u, v, ur_pred, rad_narrow, rad_wide, oct_lo, oct_hi, valid]
+A_U, A_V, A_UR, A_RN, A_RW, A_OLO, A_OHI, A_VALID = range(8)
+# b_attr lanes: [u, v, right_u, octave, valid, 0, 0, 0]
+B_U, B_V, B_UR, B_OCT, B_VALID = range(5)
+
+Best2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of each 32-bit word (int32 or int64 input) -> int64."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(M, 8) x (N, 8) int32 words -> (M, N) int32 Hamming distances.
+    One (M, N) temporary per word, not an (M, N, 8) one."""
+    d = torch.zeros(
+        (desc_a.shape[0], desc_b.shape[0]), dtype=torch.int64, device=desc_a.device
+    )
+    for w in range(desc_a.shape[1]):
+        d += popcount32(torch.bitwise_xor(desc_a[:, w, None], desc_b[None, :, w]))
+    return d.to(torch.int32)
+
+
+def proj_best2_plain(
+    desc_a: torch.Tensor, attr_a: torch.Tensor,
+    desc_b: torch.Tensor, attr_b: torch.Tensor,
+    check_ur: bool = False,
+) -> Tuple[Best2, Best2]:
+    """Plain K2.  Gates per (a, b) pair: both valid, octave_b in
+    [oct_lo, oct_hi], |du| <= r and |dv| <= r, and with ``check_ur``
+    also |dur| <= r unless right_u_b < 0.  Returns
+    ((idx_n, best_n, second_n), (idx_w, best_w, second_w)), each (M,)
+    int32.  The lowest column wins a tie, a tied duplicate of the best
+    counts as second, the sentinels are 10000 and idx is -1 where no
+    column passes (the TPU kernel's rule)."""
+    d = distance_matrix(desc_a, desc_b)
+    a = attr_a.T[:, :, None]  # a[lane] is (M, 1)
+    b = attr_b.T[:, None, :]  # b[lane] is (1, N)
+    du = torch.abs(b[B_U] - a[A_U])
+    dv = torch.abs(b[B_V] - a[A_V])
+    base = (
+        (a[A_VALID] > 0.5) & (b[B_VALID] > 0.5)
+        & (b[B_OCT] >= a[A_OLO]) & (b[B_OCT] <= a[A_OHI])
+    )
+    out = []
+    for r in (a[A_RN], a[A_RW]):
+        win = base & (du <= r) & (dv <= r)
+        if check_ur:
+            dur = torch.abs(b[B_UR] - a[A_UR])
+            win = win & ((b[B_UR] < 0) | (dur <= r))
+        dg = torch.where(win, d, INVALID_DIST)
+        best, idx = torch.min(dg, dim=1)
+        rest = dg.scatter(1, idx[:, None], INVALID_DIST)
+        second = torch.amin(rest, dim=1)
+        idx = torch.where(best < INVALID_DIST, idx, -1)
+        out.append((idx.to(torch.int32), best, second))
+    return out[0], out[1]
+
+
+def proj_best2(
+    desc_a: torch.Tensor, attr_a: torch.Tensor,
+    desc_b: torch.Tensor, attr_b: torch.Tensor,
+    check_ur: bool = False,
+) -> Tuple[Best2, Best2]:
+    """K2 dispatcher: CUDA tensors launch the CUDA kernel (or raise),
+    CPU tensors take ``proj_best2_plain``."""
+    if desc_a.is_cuda:
+        from .kernels import proj_best2_cuda
+
+        return proj_best2_cuda(desc_a, attr_a, desc_b, attr_b, check_ur)
+    if desc_a.device.type != "cpu":
+        raise ValueError(f"proj_best2: unsupported device {desc_a.device}")
+    return proj_best2_plain(desc_a, attr_a, desc_b, attr_b, check_ur)
+
+
+def rotation_histogram_mask(
+    angle_a: torch.Tensor,
+    angle_b_matched: torch.Tensor,
+    matched: torch.Tensor,
+    n_bins: int = 30,
+    keep_top: int = 3,
+) -> torch.Tensor:
+    """Rotation-consistency filter: keep matches whose angle difference
+    falls in the ``keep_top`` most popular of ``n_bins`` bins, dropping
+    bins below 10% of the best (the reference's computeThreeMaxima).
+    Ties between bins go to the lower bin, as ``jax.lax.top_k``."""
+    dev = angle_a.device
+    two_pi = torch.tensor(2.0 * torch.pi, dtype=torch.float32, device=dev)
+    diff = torch.remainder(angle_a - angle_b_matched, two_pi)  # [0, 2pi)
+    bins = torch.clamp((diff * n_bins / two_pi).to(torch.int32), 0, n_bins - 1)
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev).index_add_(
+        0, bins, matched.to(torch.int32)
+    )
+    top_counts, top_bins = stable_topk(counts, keep_top)
+    keep = top_counts.to(torch.float32) > 0.1 * top_counts[0].to(torch.float32)
+    keep[0] = top_counts[0] > 0
+    in_top = torch.any((bins[:, None] == top_bins[None, :]) & keep[None, :], dim=-1)
+    return matched & in_top
