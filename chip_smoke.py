@@ -7,35 +7,65 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of JAX.  Phases, each printing its line:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc compiles ``ydorbslam_tpu_torch/csrc/*.cu`` for sm_90a;
+  2. build: nvcc compiles ``ydorbslam_tpu_torch/csrc/*.cu`` for sm_90a,
+     one process per source, all started together;
   3. K1 (FAST-9 + NMS) against its plain PyTorch version on the 8
      pyramid levels of ``bench.make_frames()`` frame 0 and on a random
      480x640 image: bit-identical, with ms per call (CUDA events around
      runs of back-to-back calls);
   4. K2 (gated Hamming best/second) against its plain version on the
      real frame 0 -> 1 search (both ``check_ur`` values) and on random
-     problems: identical idx, best and second, with ms per call;
-  5. the main path: ``SlamSystem(..., enable_mapping=False, device="cuda")``
-     tracks all 120 frames; 0 lost frames, ATE < 0.02 m, every K1 and
-     K2 launch counted; frames/s after 20 warm-up frames;
+     problems, the local-map search's 8192 x 1024 included: identical
+     idx, best and second, with ms per call;
+  5. the mapping-off path: ``SlamSystem(..., enable_mapping=False,
+     device="cuda")`` tracks the first 60 frames; 0 lost frames,
+     ATE < 0.02 m, every K1 and K2 launch counted;
   6. per-layer times (extraction, motion search, pose LM) inside a
-     tracking run of frames 0-59;
-  7. parity: the first 20 frames again on the CPU (plain versions);
-     the same lost pattern and camera centres within 1e-3 m.
+     mapping-off tracking run of frames 0-39;
+  7. parity: the first 20 frames again on the CPU (plain versions) with
+     mapping off; the same lost pattern and camera centres within 1e-3 m;
+  8. the main path: ``SlamSystem(..., enable_mapping=True,
+     enable_loop_closing=False, device="cuda")`` tracks all 120 frames.
+     It writes ``save_trajectory_tum`` to a temporary file and reads it
+     back for the ATE.  Gates: 0 lost, ATE < 0.02 m and within 1.5x of the
+     JAX package's CPU figure, more than 2 keyframes, K1 launched 8x120
+     times, K2 at least twice per frame after the first, K3 3x and K4 17x
+     per local BA.  It prints frames/s and the median ms/frame after 20
+     warm-up frames, the keyframes inserted and culled, the live map
+     points and the synchronised ms per ``mapping_step``;
+  9. K3 (batched pair-gated best/second) against its plain version on the
+     real keyframe pairs captured in phase 8 (both modes) and on random
+     problems at B=20, M=N=1024 and a ragged M=1000, N=777: identical
+     idx, best and second, with ms per call;
+ 10. K4 (BA observation pass) against its plain version on a real local-BA
+     input captured in phase 8 and on a random one at C=96, P=4096, O=16:
+     within rtol 2e-4, atol 2e-3, with the errors and ms per call;
+ 11. parity with mapping on: the first 30 frames again on the CPU (the
+     third keyframe and its local BA come at frame 26); the same lost
+     pattern and keyframe insertions, and camera centres at track time
+     within 1e-3 m.
 
 It prints one JSON line with every kernel's name, route, source, the
-TPU kernel it replaces, launches in phase 5, max abs error and times,
-then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-Any failure exits non-zero without the last line.
+TPU kernel it replaces, launches in the main path (phase 8), max abs
+error and times, then the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``.  Any failure exits non-zero without the last line.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 N_WARM = 20
+N_OFF = 60  # frames of the mapping-off path
+# The JAX package's ATE on the same 120 frames, synchronous RGB-D with
+# mapping on and loop closing off, run on a CPU (PERF.md §5); the CUDA
+# run must stay within 1.5x of it.
+JAX_CPU_ATE_MAPPING = 0.001814043883989798
+N_PAR_MAP = 30  # CPU parity frames with mapping on: keyframe 3 and its local BA at frame 26
+K4_RTOL, K4_ATOL = 2e-4, 2e-3
 
 
 def _median_ms(fn, calls=20, reps=11, warm=3):
@@ -69,11 +99,12 @@ def _centres(poses):
 
 def _config():
     from ydorbslam_tpu_torch.config import (
-        CameraConfig, DepthConfig, OrbConfig, SlamConfig, TrackingConfig,
+        CameraConfig, CapacityConfig, DepthConfig, OrbConfig, SlamConfig, TrackingConfig,
     )
 
     # The configuration of bench.make_system: TUM fr1-desk-like RGB-D
-    # sensor, 1000 ORB features, 8 levels at 1.2.
+    # sensor, 1000 ORB features, 8 levels at 1.2, 160 keyframe and 16384
+    # map-point slots, every other capacity at its default.
     return SlamConfig(
         tracking=TrackingConfig(min_init_depth_points=100),
         camera=CameraConfig(
@@ -81,29 +112,64 @@ def _config():
         ),
         orb=OrbConfig(n_features=1000),
         depth=DepthConfig(depth_map_factor=5000.0),
+        capacity=CapacityConfig(max_keyframes=160, max_map_points=16384),
     )
 
 
-def _run(frames, device):
+def _run(frames, device, mapping):
     """Track ``frames`` with the port on ``device``: (system, per-frame
-    seconds, poses, lost flags)."""
+    seconds, track-time poses, lost flags, keyframes after each frame)."""
     import torch
 
     from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
 
     system = SlamSystem(
-        _config(), Sensor.RGBD, enable_mapping=False, enable_loop_closing=False,
+        _config(), Sensor.RGBD, enable_mapping=mapping, enable_loop_closing=False,
         device=device,
     )
-    secs = []
+    secs, kfs = [], []
     for t, gray, depth in frames:
         t0 = time.perf_counter()
         system.track_rgbd(t, gray, depth)
         if device == "cuda":
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        kfs.append(system.n_keyframes)
     _, poses, lost = system.tracker.trajectory()
-    return system, secs, poses, lost
+    return system, secs, poses, lost, kfs
+
+
+def _random_pairs(rng, B, M, N, mode):
+    """A K3 problem with near-duplicate descriptors and gates that pass."""
+    import numpy as np
+
+    da = rng.integers(0, 2**32, (B, M, 8), dtype=np.uint64).astype(np.uint32)
+    noise = np.bitwise_and.reduce(
+        rng.integers(0, 2**32, (3, B, N, 8), dtype=np.uint64).astype(np.uint32), axis=0)
+    db = np.take_along_axis(da, rng.integers(0, M, (B, N, 1)), 1) ^ noise
+    z, zb = np.zeros((B, M)), np.zeros((B, N))
+    ub, vb = rng.uniform(0, 640, (B, N)), rng.uniform(0, 480, (B, N))
+    if mode == "proj":
+        # Projections near a b keypoint, with a right-x consistent with
+        # its disparity, so the window and chi2 gates pass and fail.
+        src = rng.integers(0, N, (B, M))
+        disp = rng.uniform(1, 30, (B, N))
+        ua = np.take_along_axis(ub, src, 1) + rng.normal(0, 1.5, (B, M))
+        va = np.take_along_axis(vb, src, 1) + rng.normal(0, 1.5, (B, M))
+        ura = ua - np.take_along_axis(disp, src, 1) + rng.normal(0, 1.0, (B, M))
+        boct = rng.integers(0, 5, (B, N))
+        lo = np.take_along_axis(boct, src, 1) - rng.integers(0, 2, (B, M))
+        aa = np.stack([ua, va, ura, rng.uniform(3, 12, (B, M)), z, lo, lo + 1,
+                       rng.random((B, M)) < 0.9], -1)
+        ab = np.stack([ub, vb, np.where(rng.random((B, N)) < 0.7, ub - disp, -1), boct,
+                       rng.random((B, N)) < 0.9, 1.0 / 1.44 ** boct, zb, zb], -1)
+    else:
+        la, lb = rng.normal(0, 1, (B, M)), rng.normal(0, 1, (B, M))
+        boct = rng.integers(0, 5, (B, N))
+        aa = np.stack([la, lb, rng.normal(0, 300, (B, M)), 3.84 * np.maximum(la * la + lb * lb, 1e-18),
+                       rng.integers(0, 5, (B, M)), rng.random((B, M)) < 0.9, z, z], -1)
+        ab = np.stack([ub, vb, 1.44 ** boct * 100.0, boct, rng.random((B, N)) < 0.9, zb, zb, zb], -1)
+    return da.view(np.int32), aa.astype(np.float32), db.view(np.int32), ab.astype(np.float32)
 
 
 def main() -> int:
@@ -111,6 +177,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU")
+    t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     os.chdir(root)
     sys.path.insert(0, root)
@@ -118,13 +185,14 @@ def main() -> int:
 
     import bench
     from ydorbslam_tpu_torch import _build
-    from ydorbslam_tpu_torch.io import ate_rmse
-    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
+    from ydorbslam_tpu_torch.ops import hamming, kernels
     from ydorbslam_tpu_torch.ops.extractor import DETECT_BORDER
     from ydorbslam_tpu_torch.ops.fast import fast_score_map, nms_and_border
-    from ydorbslam_tpu_torch.ops.hamming import proj_best2_plain
+    from ydorbslam_tpu_torch.ops.hamming import pair_best2_plain, proj_best2_plain
     from ydorbslam_tpu_torch.ops.pyramid import build_pyramid
-    from ydorbslam_tpu_torch.slam import matchers
+    from ydorbslam_tpu_torch.optim import lm_kernel, schur
+    from ydorbslam_tpu_torch.slam import matchers, system as system_mod, triangulate
 
     dev = torch.device("cuda")
     # 1. device
@@ -170,6 +238,7 @@ def main() -> int:
           f"plain {k1_plain:.4f} ms", flush=True)
 
     # 4. K2 against plain: the real frame 0 -> 1 motion search, then random.
+    from ydorbslam_tpu_torch.ops.stereo import fill_depth_from_rgbd
     from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
 
     sysk = SlamSystem(_config(), Sensor.RGBD, enable_mapping=False,
@@ -177,8 +246,6 @@ def main() -> int:
     tr = sysk.tracker
     tr.track_rgbd(*frames[0])
     curr = tr._extract(frames[1][1])
-    from ydorbslam_tpu_torch.ops.stereo import fill_depth_from_rgbd
-
     d1 = torch.as_tensor(frames[1][2]).to(dev).float() / torch.tensor(5000.0, device=dev)
     curr = fill_depth_from_rgbd(curr, d1, tr.cam)
     attr_a = matchers._motion_attr(
@@ -189,7 +256,7 @@ def main() -> int:
     real = (tr.last_feats.desc, attr_a, curr.desc, attr_b)
     rng = np.random.default_rng(1)
     problems = [("real", real)]
-    for M, N in ((1024, 1024), (1000, 777)):
+    for M, N in ((1024, 1024), (1000, 777), (8192, 1024)):
         uv_b = rng.uniform([8, 8], [632, 472], (N, 2))
         tgt = rng.integers(0, N, M)
         uv_a = uv_b[tgt] + rng.normal(0, 6, (M, 2))
@@ -221,70 +288,227 @@ def main() -> int:
     n_pass = int((k[1][0] >= 0).sum())
     k2_ms = _median_ms(lambda: kernels.proj_best2_cuda(*real, check_ur=True))
     k2_plain = _median_ms(lambda: proj_best2_plain(*real, check_ur=True))
+    big = problems[-1][1]
+    k2_big_ms = _median_ms(lambda: kernels.proj_best2_cuda(*big, check_ur=False))
+    k2_big_plain = _median_ms(lambda: proj_best2_plain(*big, check_ur=False))
     report["proj_best2"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=k2_plain)
     print(f"phase 4 K2: identical on real {tuple(real[0].shape)}x{tuple(real[2].shape)} "
           f"and {[l for l, _ in problems[1:]]}, both check_ur; real search kernel "
-          f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms (rows with a candidate in the "
+          f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms; 8192x1024 (local-map shape) kernel "
+          f"{k2_big_ms:.4f} ms, plain {k2_big_plain:.4f} ms (rows with a candidate in the "
           f"last random problem: {n_pass})", flush=True)
 
-    # 5. main path
+    # 5. the mapping-off path
     kernels.reset_launch_counts()
-    system, secs, poses, lost = _run(frames, "cuda")
+    system, secs, poses, lost, _ = _run(frames[:N_OFF], "cuda", mapping=False)
     launches = kernels.launch_counts()
     n_lost = sum(lost)
-    ate = ate_rmse(_centres(poses), gt_centres)
+    ate = ate_rmse(_centres(poses), gt_centres[:N_OFF])
     steady = secs[N_WARM:]
-    fps = len(steady) / sum(steady)
-    med_ms = float(np.median(steady)) * 1e3
-    print(f"phase 5 main path: {len(frames)} frames, lost {n_lost}, ATE {ate:.6f} m, "
+    print(f"phase 5 mapping-off path: {N_OFF} frames, lost {n_lost}, ATE {ate:.6f} m, "
           f"last-frame inliers {system.tracked_map_points()}, launches {launches}, "
-          f"{fps:.3f} frames/s, median {med_ms:.3f} ms/frame after {N_WARM} warm-up "
-          f"frames | {smi}", flush=True)
+          f"{len(steady) / sum(steady):.3f} frames/s, median "
+          f"{float(np.median(steady)) * 1e3:.3f} ms/frame after {N_WARM} warm-up frames "
+          f"| {smi}", flush=True)
     if not all(np.isfinite(p).all() and p.shape == (4, 4) for p in poses):
         raise AssertionError("non-finite or malformed pose")
     if n_lost != 0 or not ate < 0.02:
-        raise AssertionError(f"main path: lost {n_lost}, ATE {ate}")
-    if launches["fast_score_nms"] != 8 * len(frames) or launches["proj_best2"] < len(frames) - 1:
-        raise AssertionError(f"main path did not go through the kernels: {launches}")
-    for k in report:
-        report[k]["launches"] = launches[k]
+        raise AssertionError(f"mapping-off path: lost {n_lost}, ATE {ate}")
+    if launches["fast_score_nms"] != 8 * N_OFF or launches["proj_best2"] < N_OFF - 1:
+        raise AssertionError(f"mapping-off path did not go through the kernels: {launches}")
+    off_poses, off_lost = poses, lost
 
-    # 6. per-layer times, inside a real tracking run of frames 0-59: the
+    # 6. per-layer times, inside a real tracking run of frames 0-39: the
     # tracker's three compute steps are wrapped with synchronized timers.
     from ydorbslam_tpu_torch.slam import tracking
 
     layers = {"extract_orb": [], "match_motion_model_two": [], "optimize_pose": []}
 
-    def timed(fn, key):
+    def timed(fn, key, store):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            layers[key].append((time.perf_counter() - t0) * 1e3)
+            store[key].append((time.perf_counter() - t0) * 1e3)
             return out
         return wrapper
 
     originals = {k: getattr(tracking, k) for k in layers}
     try:
         for k, fn in originals.items():
-            setattr(tracking, k, timed(fn, k))
-        _run(frames[:60], "cuda")
+            setattr(tracking, k, timed(fn, k, layers))
+        _run(frames[:40], "cuda", mapping=False)
     finally:
         for k, fn in originals.items():
             setattr(tracking, k, fn)
-    print("phase 6 layers over frames 0-59 (median ms per call, calls): "
+    print("phase 6 layers over frames 0-39, mapping off (median ms per call, calls): "
           + ", ".join(f"{k} {float(np.median(v)):.3f} ({len(v)})" for k, v in layers.items()),
           flush=True)
 
-    # 7. parity against the CPU
-    _, _, poses_cpu, lost_cpu = _run(frames[:N_WARM], "cpu")
-    diff = float(np.abs(_centres(poses_cpu) - _centres(poses[:N_WARM])).max())
-    print(f"phase 7 CPU parity: first {N_WARM} frames, lost pattern "
-          f"{'identical' if lost_cpu == lost[:N_WARM] else 'DIFFERENT'}, "
+    # 7. parity against the CPU, mapping off
+    _, _, poses_cpu, lost_cpu, _ = _run(frames[:N_WARM], "cpu", mapping=False)
+    diff = float(np.abs(_centres(poses_cpu) - _centres(off_poses[:N_WARM])).max())
+    print(f"phase 7 CPU parity, mapping off: first {N_WARM} frames, lost pattern "
+          f"{'identical' if lost_cpu == off_lost[:N_WARM] else 'DIFFERENT'}, "
           f"max camera-centre difference {diff:.3e} m", flush=True)
-    if lost_cpu != lost[:N_WARM] or not diff < 1e-3:
-        raise AssertionError("CPU and CUDA runs disagree")
+    if lost_cpu != off_lost[:N_WARM] or not diff < 1e-3:
+        raise AssertionError("CPU and CUDA runs disagree with mapping off")
+
+    # 8. the main path: mapping on.  The K3 and K4 inputs of the run are
+    # kept (references, not copies) for phases 9 and 10, and each
+    # mapping_step is timed between synchronisations.
+    captured = {}
+    step_ms = []
+
+    def keep_pairs(desc_a, attr_a, desc_b, attr_b, mode="proj"):
+        captured[mode] = (desc_a, attr_a, desc_b, attr_b)
+        return hamming.pair_best2(desc_a, attr_a, desc_b, attr_b, mode)
+
+    def keep_obs(inp):
+        captured["lm_obs"] = inp
+        return lm_kernel.lm_obs(inp)
+
+    patches = [(triangulate, "pair_best2", keep_pairs), (schur, "lm_obs", keep_obs),
+               (system_mod, "mapping_step",
+                timed(system_mod.mapping_step, "mapping_step", {"mapping_step": step_ms}))]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        kernels.reset_launch_counts()
+        system, secs, poses, lost, kfs = _run(frames, "cuda", mapping=True)
+        launches = kernels.launch_counts()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    stats = system.run_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "CameraTrajectory.txt")
+        system.save_trajectory_tum(path)
+        ts, pos_tum, _ = read_tum_trajectory(path)
+    frame_of = {t: i for i, (t, _, _) in enumerate(frames)}
+    rows = [frame_of[min(frame_of, key=lambda x: abs(x - t))] for t in ts]
+    ate_map = ate_rmse(pos_tum, gt_centres[rows])
+    n_lost = sum(lost)
+    steady = secs[N_WARM:]
+    fps = len(steady) / sum(steady)
+    med_ms = float(np.median(steady)) * 1e3
+    n_ba = stats["local_ba_runs"]
+    print(f"phase 8 main path (mapping on): {len(frames)} frames, lost {n_lost}, TUM rows "
+          f"{len(ts)}, ATE {ate_map:.6f} m (JAX on a CPU: {JAX_CPU_ATE_MAPPING}), keyframes "
+          f"inserted {stats['keyframes_inserted']} culled {stats['keyframes_culled']} live "
+          f"{stats['keyframes_live']}, local BA runs {n_ba}, live map points "
+          f"{stats['map_points_live']}, mean inliers {stats['mean_inliers']:.1f}, launches "
+          f"{launches}, {fps:.3f} frames/s, median {med_ms:.3f} ms/frame after {N_WARM} "
+          f"warm-up frames, mapping_step median "
+          f"{float(np.median(step_ms)) if step_ms else float('nan'):.3f} ms "
+          f"(min {min(step_ms, default=float('nan')):.3f}, max "
+          f"{max(step_ms, default=float('nan')):.3f}, {len(step_ms)} calls) | {smi}", flush=True)
+    if not all(np.isfinite(p).all() and p.shape == (4, 4) for p in poses):
+        raise AssertionError("non-finite or malformed pose with mapping on")
+    if n_lost != 0 or len(ts) != len(frames) or not np.isfinite(pos_tum).all():
+        raise AssertionError(f"main path: lost {n_lost}, {len(ts)} TUM rows")
+    if not ate_map < 0.02 or not ate_map <= 1.5 * JAX_CPU_ATE_MAPPING:
+        raise AssertionError(f"main path: ATE {ate_map} (JAX on a CPU {JAX_CPU_ATE_MAPPING})")
+    if stats["keyframes_inserted"] <= 2 or n_ba != len(step_ms) or n_ba < 1:
+        raise AssertionError(f"main path: {stats['keyframes_inserted']} keyframes, {n_ba} BAs")
+    expect = dict(fast_score_nms=8 * len(frames), pair_best2=3 * n_ba, lm_obs=17 * n_ba)
+    if any(launches[k] != v for k, v in expect.items()) or \
+            launches["proj_best2"] < 2 * (len(frames) - 1):
+        raise AssertionError(f"main path launches {launches}, expected {expect} and "
+                             f">= {2 * (len(frames) - 1)} proj_best2")
+    for k in kernels.launch_counts():
+        report.setdefault(k, {})["launches"] = launches[k]
+
+    # 9. K3 against plain: the real pairs of the run, then random problems.
+    rng = np.random.default_rng(3)
+    k3_cases = [(f"real {mode} B={captured[mode][0].shape[0]}", mode, captured[mode])
+                for mode in ("epi", "proj")]
+    for B, M, N in ((20, 1024, 1024), (20, 1000, 777)):
+        for mode in ("epi", "proj"):
+            k3_cases.append((f"random {mode} {B}x{M}x{N}", mode, tuple(
+                torch.as_tensor(x).to(dev) for x in _random_pairs(rng, B, M, N, mode))))
+    hits = []
+    for label, mode, prob in k3_cases:
+        k = kernels.pair_best2_cuda(*prob, mode=mode)
+        p = pair_best2_plain(*prob, mode=mode)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k, p)):
+            raise AssertionError(f"K3 differs from plain on {label}")
+        hits.append(f"{label}: {int((p[1] < 60).sum())} rows <= 59")
+    times = {}
+    for mode in ("epi", "proj"):
+        times[mode] = (_median_ms(lambda: kernels.pair_best2_cuda(*captured[mode], mode=mode)),
+                       _median_ms(lambda: pair_best2_plain(*captured[mode], mode=mode),
+                                  calls=5, reps=5))
+    report["pair_best2"].update(max_abs_err=0.0, ms=times["proj"][0], plain_ms=times["proj"][1])
+    print(f"phase 9 K3: identical on {[l for l, _, _ in k3_cases]}; ms per call kernel / "
+          f"plain: epi (B={captured['epi'][0].shape[0]}) {times['epi'][0]:.4f} / "
+          f"{times['epi'][1]:.4f}, proj (B={captured['proj'][0].shape[0]}) "
+          f"{times['proj'][0]:.4f} / {times['proj'][1]:.4f} | {'; '.join(hits)}", flush=True)
+
+    # 10. K4 against plain: the real local-BA input, then a random one.
+    real_inp = captured["lm_obs"]
+    g = torch.Generator().manual_seed(4)
+    C, P, O = 96, 4096, 16
+    from ydorbslam_tpu_torch.geometry.se3 import se3_exp
+
+    Tc = se3_exp(torch.randn(C, 6, generator=g) * 0.1)[torch.randint(0, C, (O, P), generator=g)]
+    rnd = torch.zeros((lm_kernel.NIN, O, P))
+    rnd[0:9] = Tc[..., :3, :3].reshape(O, P, 9).permute(2, 0, 1)
+    rnd[9:12] = Tc[..., :3, 3].permute(2, 0, 1)
+    rnd[12] = torch.rand(P, generator=g) * 6 - 3
+    rnd[13] = torch.rand(P, generator=g) * 4 - 2
+    rnd[14] = torch.rand(P, generator=g) * 6 + 3
+    rnd[15] = torch.rand((O, P), generator=g) * 640
+    rnd[16] = torch.rand((O, P), generator=g) * 480
+    rnd[17] = rnd[15] - 50.0 / rnd[14]
+    rnd[18] = 1.0 / 1.44 ** torch.randint(0, 8, (O, P), generator=g).float()
+    rnd[19] = (torch.rand((O, P), generator=g) < 0.7).float()
+    rnd[20] = (torch.rand((O, P), generator=g) < 0.8).float()
+    rnd[21] = 1.0
+    rnd[22:27] = torch.tensor([500.0, 500.0, 320.0, 240.0, 50.0])[:, None, None]
+    errs = []
+    for label, inp in (("real", real_inp), ("random 96x4096x16", rnd.to(dev))):
+        for hub in (1.0, 0.0):
+            x = inp.clone()
+            x[21] = hub
+            kq, kp = kernels.lm_obs_cuda(x)
+            pq, pp = lm_kernel.lm_obs_plain(x)
+            torch.cuda.synchronize()
+            for a, b in ((kq, pq), (kp, pp)):
+                if not torch.isfinite(b).all():
+                    raise AssertionError(f"K4 plain version not finite on {label}")
+                bad = (a - b).abs() > K4_ATOL + K4_RTOL * b.abs()
+                if bad.any():
+                    raise AssertionError(f"K4 differs from plain on {label}, huber={hub}: "
+                                         f"{int(bad.sum())} entries")
+                errs.append(float((a - b).abs().max()))
+    k4_ms = _median_ms(lambda: kernels.lm_obs_cuda(real_inp))
+    k4_plain = _median_ms(lambda: lm_kernel.lm_obs_plain(real_inp), calls=5, reps=5)
+    k4_rnd = rnd.to(dev)
+    k4_rnd_ms = _median_ms(lambda: kernels.lm_obs_cuda(k4_rnd))
+    k4_rnd_plain = _median_ms(lambda: lm_kernel.lm_obs_plain(k4_rnd), calls=5, reps=5)
+    report["lm_obs"].update(max_abs_err=max(errs), ms=k4_ms, plain_ms=k4_plain)
+    print(f"phase 10 K4: within rtol {K4_RTOL}, atol {K4_ATOL} on real "
+          f"{tuple(real_inp.shape)} and random {C}x{P}x{O}, both Huber settings; max abs "
+          f"errors {['%.3e' % e for e in errs]}; ms per call kernel / plain: real "
+          f"{k4_ms:.4f} / {k4_plain:.4f}, random {k4_rnd_ms:.4f} / {k4_rnd_plain:.4f}",
+          flush=True)
+
+    # 11. parity against the CPU, mapping on
+    cpu_sys, _, poses_cpu, lost_cpu, kfs_cpu = _run(frames[:N_PAR_MAP], "cpu", mapping=True)
+    diff = float(np.abs(_centres(poses_cpu) - _centres(poses[:N_PAR_MAP])).max())
+    same_kf = kfs_cpu == kfs[:N_PAR_MAP]
+    print(f"phase 11 CPU parity, mapping on: first {N_PAR_MAP} frames "
+          f"({cpu_sys.stats.local_ba_runs} local BA), lost pattern "
+          f"{'identical' if lost_cpu == lost[:N_PAR_MAP] else 'DIFFERENT'}, keyframes after "
+          f"each frame {'identical' if same_kf else 'DIFFERENT'} ({kfs_cpu}), max "
+          f"camera-centre difference at track time {diff:.3e} m", flush=True)
+    if lost_cpu != lost[:N_PAR_MAP] or not same_kf or not diff < 1e-3 or \
+            cpu_sys.stats.local_ba_runs < 1:
+        raise AssertionError("CPU and CUDA runs disagree with mapping on")
 
     rows = []
     for k, src, rep in (
@@ -292,11 +516,16 @@ def main() -> int:
          "ydorbslam_tpu/ops/pallas_kernels.py:125"),
         ("proj_best2", "ydorbslam_tpu_torch/csrc/proj_best2.cu",
          "ydorbslam_tpu/ops/pallas_kernels.py:293"),
+        ("pair_best2", "ydorbslam_tpu_torch/csrc/pair_best2.cu",
+         "ydorbslam_tpu/ops/pallas_kernels.py:463"),
+        ("lm_obs", "ydorbslam_tpu_torch/csrc/lm_obs.cu",
+         "ydorbslam_tpu/optim/lm_kernel.py:149"),
     ):
         r = report[k]
         rows.append(dict(name=k, route="cuda", source=src, replaces=rep,
                          launches=r["launches"], max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"]))
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

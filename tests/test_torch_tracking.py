@@ -97,7 +97,7 @@ def test_vo_slice_matches_jax(seq, runs):
 
 def test_cpu_run_launches_no_kernel(runs):
     # The whole 20-frame CPU run went through the plain versions.
-    assert runs[2] == {"fast_score_nms": 0, "proj_best2": 0}
+    assert runs[2] == {"fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0, "lm_obs": 0}
 
 
 def test_step_from_jax_state(seq, runs):
@@ -143,8 +143,9 @@ def test_features_convert_keeps_descriptor_bits():
 
 def test_unported_paths_raise_and_dispatch_refuses_other_devices():
     cfg = config_from_dict(dataclasses.asdict(make_cfg()))
-    with pytest.raises(NotImplementedError):
-        SlamSystem(cfg, Sensor.RGBD, enable_mapping=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        SlamSystem(cfg, Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+                   device="cpu")
     with pytest.raises(NotImplementedError):
         port_system().track_stereo(0.0, None, None)
     meta = torch.zeros((64, 64), device="meta")

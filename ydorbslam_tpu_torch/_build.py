@@ -2,10 +2,12 @@
 
 The sources in ``csrc/`` are compiled for Hopper (``sm_90a``) into one
 shared library with a plain C interface, at first use and never at
-import:
+import.  Each source is compiled by its own nvcc process, all started
+together, and the objects are then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/<hash>/libydorb_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+         -Xcompiler -fPIC -o build/kernels/<hash>/<source>.o csrc/<source>.cu
+    nvcc -shared -o build/kernels/<hash>/libydorb_kernels.so build/kernels/<hash>/*.o
 
 The library goes under ``build/kernels/`` at the repository root (listed
 in ``.gitignore``), in a directory named by a hash of the sources and
@@ -27,8 +29,12 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libydorb_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Per-source flags.  K4 is built without multiply-add contraction, so
+# each of its operations rounds once as in the plain PyTorch version and
+# the two agree to the order of the per-point sums (csrc/lm_obs.cu).
+SOURCE_FLAGS = {"lm_obs.cu": ("-fmad=false",)}
 
 
 def _sources():
@@ -48,6 +54,7 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(src.name, ())).encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
@@ -61,19 +68,41 @@ def build() -> dict:
         return dict(path=str(path), seconds=0.0, log="(cached)")
     path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=path.parent))
+    try:
+        jobs = []
+        for src in _sources():
+            obj = work / (src.stem + ".o")
+            cmd = [
+                nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()),
+                "-c", "-o", str(obj), str(src),
+            ]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = work / LIB_NAME
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return dict(
-        path=str(path), seconds=time.perf_counter() - t0,
-        log=proc.stdout + proc.stderr,
+        path=str(path), seconds=time.perf_counter() - t0, log="".join(log),
     )
 
 
@@ -86,4 +115,8 @@ def load() -> ctypes.CDLL:
     lib.ydorb_fast_score_nms.restype = i
     lib.ydorb_proj_best2.argtypes = [p, p, p, p, i, i, i, p, p]
     lib.ydorb_proj_best2.restype = i
+    lib.ydorb_pair_best2.argtypes = [p, p, p, p, i, i, i, i, p, p]
+    lib.ydorb_pair_best2.restype = i
+    lib.ydorb_lm_obs.argtypes = [p, i, i, p, p, p]
+    lib.ydorb_lm_obs.restype = i
     return lib

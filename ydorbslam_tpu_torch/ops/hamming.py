@@ -1,8 +1,9 @@
 """Packed-descriptor Hamming distances, the rotation histogram, and the
-K2 gated best/second search with its dispatcher.
+gated best/second searches K2 and K3 with their dispatchers.
 
-Port of ``ydorbslam_tpu/ops/hamming.py`` plus the contract of
-``ydorbslam_tpu/ops/pallas_kernels.py::proj_best2_pallas``.
+Port of ``ydorbslam_tpu/ops/hamming.py`` plus the contracts of
+``ydorbslam_tpu/ops/pallas_kernels.py::proj_best2_pallas`` (K2) and
+``pair_best2_pallas`` (K3).
 
 PyTorch has no popcount operator: the plain distance XORs the int32
 words, widens to int64 with ``& 0xFFFFFFFF`` and counts bits with the
@@ -27,6 +28,13 @@ INVALID_DIST = 10_000  # sentinel > any Hamming distance (max 256)
 A_U, A_V, A_UR, A_RN, A_RW, A_OLO, A_OHI, A_VALID = range(8)
 # b_attr lanes: [u, v, right_u, octave, valid, 0, 0, 0]
 B_U, B_V, B_UR, B_OCT, B_VALID = range(5)
+# K3 "proj" b-lane 5: 1/scale_factor^(2*octave), the fuse chi2 weight.
+B_ISF2 = 5
+# K3 "epi" a-lanes: epipolar line (a, b, c), 3.84*(a^2+b^2), octave, valid;
+# b-lane 2 carries sigma^2(octave_b) in that mode.
+E_LA, E_LB, E_LC, E_THR, E_OCT, E_VALID = range(6)
+B_SIG2 = B_UR
+PAIR_MODES = ("proj", "epi")
 
 Best2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -101,6 +109,90 @@ def proj_best2(
     if desc_a.device.type != "cpu":
         raise ValueError(f"proj_best2: unsupported device {desc_a.device}")
     return proj_best2_plain(desc_a, attr_a, desc_b, attr_b, check_ur)
+
+
+def popcount32_i32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of each int32 word, in int32 (no widening, so a
+    (B, M, N) distance stays at 4 bytes per pair).  The shifts are
+    arithmetic, and every mask clears the sign-extended bits."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def pair_gates(attr_a: torch.Tensor, attr_b: torch.Tensor, mode: str) -> torch.Tensor:
+    """(B, M, N) bool gate of K3 from the (B, M, 8) and (B, N, 8)
+    attribute packs.  The arithmetic is the TPU kernel's
+    (pallas_kernels._pair_best2_kernel) in its order, one rounding per
+    operation, so the CUDA kernel reproduces it bit for bit."""
+    if mode not in PAIR_MODES:
+        raise ValueError(f"pair_best2: mode must be one of {PAIR_MODES}, got {mode!r}")
+    a = attr_a.permute(2, 0, 1)[:, :, :, None]  # a[lane] is (B, M, 1)
+    b = attr_b.permute(2, 0, 1)[:, :, None, :]  # b[lane] is (B, 1, N)
+    if mode == "proj":
+        du = b[B_U] - a[A_U]
+        dv = b[B_V] - a[A_V]
+        dur = b[B_UR] - a[A_UR]
+        mono2 = du * du + dv * dv
+        chi2_ok = torch.where(
+            b[B_UR] >= 0.0,
+            (mono2 + dur * dur) * b[B_ISF2] <= 7.81,
+            mono2 * b[B_ISF2] <= 5.99,
+        )
+        rad = a[A_RN]
+        return (
+            (a[A_VALID] > 0.5) & (b[B_VALID] > 0.5)
+            & (b[B_OCT] >= a[A_OLO]) & (b[B_OCT] <= a[A_OHI])
+            & (torch.abs(du) <= rad) & (torch.abs(dv) <= rad)
+            & chi2_ok
+        )
+    num = a[E_LA] * b[B_U] + a[E_LB] * b[B_V] + a[E_LC]
+    return (
+        (a[E_VALID] > 0.5) & (b[B_VALID] > 0.5)
+        & (torch.abs(b[B_OCT] - a[E_OCT]) <= 1.0)
+        & (num * num < a[E_THR] * b[B_SIG2])
+    )
+
+
+def pair_best2_plain(
+    desc_a: torch.Tensor, attr_a: torch.Tensor,
+    desc_b: torch.Tensor, attr_b: torch.Tensor,
+    mode: str = "proj",
+) -> Best2:
+    """Plain K3: the dense (B, M, N) masked distance and a stable
+    two-smallest per a-row.  desc (B, M|N, 8) int32, attr (B, M|N, 8)
+    float32 (lanes above).  Returns (idx, best, second), each (B, M)
+    int32, with K2's tie rule and sentinels (10000, idx -1)."""
+    gate = pair_gates(attr_a, attr_b, mode)
+    d = torch.zeros(gate.shape, dtype=torch.int32, device=desc_a.device)
+    for w in range(desc_a.shape[-1]):
+        d += popcount32_i32(
+            torch.bitwise_xor(desc_a[:, :, None, w], desc_b[:, None, :, w])
+        )
+    dg = torch.where(gate, d, INVALID_DIST)
+    best, idx = torch.min(dg, dim=2)
+    second = torch.amin(dg.scatter(2, idx[..., None], INVALID_DIST), dim=2)
+    idx = torch.where(best < INVALID_DIST, idx, -1)
+    return idx.to(torch.int32), best.to(torch.int32), second.to(torch.int32)
+
+
+def pair_best2(
+    desc_a: torch.Tensor, attr_a: torch.Tensor,
+    desc_b: torch.Tensor, attr_b: torch.Tensor,
+    mode: str = "proj",
+) -> Best2:
+    """K3 dispatcher: CUDA tensors launch the CUDA kernel (or raise),
+    CPU tensors take ``pair_best2_plain``."""
+    if desc_a.is_cuda:
+        from .kernels import pair_best2_cuda
+
+        return pair_best2_cuda(desc_a, attr_a, desc_b, attr_b, mode)
+    if desc_a.device.type != "cpu":
+        raise ValueError(f"pair_best2: unsupported device {desc_a.device}")
+    return pair_best2_plain(desc_a, attr_a, desc_b, attr_b, mode)
 
 
 def rotation_histogram_mask(

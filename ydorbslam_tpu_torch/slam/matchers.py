@@ -1,9 +1,9 @@
 """Projection and appearance matching on torch tensors.
 
-Port of the tracking slice's part of ``ydorbslam_tpu/slam/matchers.py``:
-the motion-model search (``match_motion_model``, and its two-radius
-form ``match_motion_model_two``) and the appearance-only fallback
-(``match_dense``).  Every best/second search goes through the K2
+Port of the tracking part of ``ydorbslam_tpu/slam/matchers.py``: the
+motion-model search (``match_motion_model``, and its two-radius form
+``match_motion_model_two``), the appearance-only fallback
+(``match_dense``) and the local-map search (``match_local_points``).  Every best/second search goes through the K2
 dispatcher ``ops.hamming.proj_best2``: gates travel as per-row and
 per-column attribute packs, the kernel (or its plain version) returns
 per-row (idx, best, second), and ``_resolve_columns`` turns those into
@@ -103,11 +103,13 @@ def project_sources(
     cam: CameraIntrinsics, T_cw: torch.Tensor, p_w: torch.Tensor,
     valid: torch.Tensor, border: float = 0.0,
 ) -> ProjectedSources:
-    pc = p_w @ T_cw[:3, :3].T + T_cw[:3, 3]
-    z = pc[:, 2]
+    """Project points (..., M, 3) through poses (..., 4, 4); a leading
+    batch of poses projects a batch of point sets."""
+    pc = p_w @ T_cw[..., :3, :3].transpose(-1, -2) + T_cw[..., None, :3, 3]
+    z = pc[..., 2]
     zs = torch.clamp(z, min=1e-6)
-    u = cam.fx * pc[:, 0] / zs + cam.cx
-    v = cam.fy * pc[:, 1] / zs + cam.cy
+    u = cam.fx * pc[..., 0] / zs + cam.cx
+    v = cam.fy * pc[..., 1] / zs + cam.cy
     ur = u - cam.bf / zs
     ok = (
         valid
@@ -256,3 +258,69 @@ def match_dense(
         ang_a = angle_a[torch.clamp(assign, 0, angle_a.shape[0] - 1).to(torch.int64)]
         matched = rotation_histogram_mask(angle_b, ang_a, matched)
     return torch.where(matched, assign, -1), dist
+
+
+def predict_scale_level(
+    dist: torch.Tensor, max_dist: torch.Tensor, n_levels: int, scale_factor: float
+) -> torch.Tensor:
+    """MapPoint::predictScaleLevel (src/mapPoint.cpp:251-278):
+    level = ceil(log(max_dist / dist) / log(scale_factor)), clamped.
+    The logarithm of the scale factor is taken in float32 and divided as
+    a tensor, as in the JAX package."""
+    dev = dist.device
+    ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-6), min=1e-6)
+    log_sf = torch.log(torch.full((), scale_factor, dtype=torch.float32, device=dev))
+    lvl = torch.ceil(torch.log(ratio) / log_sf).to(torch.int32)
+    return torch.clamp(lvl, 0, n_levels - 1)
+
+
+def match_local_points(
+    cam: CameraIntrinsics,
+    curr: FrameFeatures,
+    T_cw: torch.Tensor,
+    mp_pos: torch.Tensor,
+    mp_desc: torch.Tensor,
+    mp_normal: torch.Tensor,
+    mp_max_dist: torch.Tensor,
+    mp_min_dist: torch.Tensor,
+    mp_valid: torch.Tensor,
+    th: float = 1.0,
+    n_levels: int = 8,
+    scale_factor: float = 1.2,
+    ratio: float = 0.8,
+    max_dist: int = TH_HIGH,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local-map-point -> frame search (track-local-map): the frustum
+    test (in image, distance band [0.8 min, 1.2 max], view cos > 0.5,
+    frame.cpp:295-326) and the projection search (radius 2.5 if view cos
+    > 0.998 else 4.0, times th and the predicted octave's scale; octaves
+    in [pred-1, pred]; best/second ratio), orbMatcher.cpp:24-64.  One K2
+    launch with ``check_ur=False``; the assignments equal those of the
+    JAX package's dense CPU search (``search_by_projection``).
+
+    Returns (assign (N,) map-point row per current keypoint or -1,
+    dist (N,))."""
+    dev = mp_pos.device
+    scales = torch.from_numpy(scale_factors(n_levels, scale_factor)).to(dev)
+    proj = project_sources(cam, T_cw, mp_pos, mp_valid)
+    cam_center = -T_cw[:3, :3].T @ T_cw[:3, 3]
+    po = mp_pos - cam_center[None]
+    dist = torch.linalg.norm(po, dim=-1)
+    view_cos = torch.sum(po * mp_normal, dim=-1) / torch.clamp(
+        dist * torch.linalg.norm(mp_normal, dim=-1), min=1e-6
+    )
+    band_ok = (dist >= 0.8 * mp_min_dist) & (dist <= 1.2 * mp_max_dist)
+    frustum_ok = proj.valid & band_ok & (view_cos > 0.5)
+    pred = predict_scale_level(dist, 1.2 * mp_max_dist, n_levels, scale_factor)
+    big = torch.full_like(view_cos, 4.0)
+    radius = torch.where(view_cos > 0.998, 2.5 * torch.ones_like(big), big) * scales[
+        pred.to(torch.int64)
+    ] * th
+    attr_a = _pack_src_attr(
+        proj.uv[:, 0], proj.uv[:, 1], proj.ur, radius, radius, pred - 1, pred, frustum_ok,
+    )
+    (idx, b1, b2), _ = proj_best2(
+        mp_desc, attr_a, curr.desc, _pack_cur_attr(curr), check_ur=False
+    )
+    row_ok = (b1 <= max_dist) & (b1.to(torch.float32) < ratio * b2.to(torch.float32))
+    return _resolve_columns(idx, b1, row_ok, curr.valid.shape[0])

@@ -1,9 +1,12 @@
 """Per-frame tracking: the front-end state machine, on torch tensors.
 
-Port of ``ydorbslam_tpu/slam/tracking.py`` for the configuration with
-mapping off: NOT_INITIALIZED -> OK -> LOST, depth-seeded
-initialization, motion-model tracking with the 7/14 px retry, the
-appearance-only fallback and trajectory bookkeeping.
+Port of ``ydorbslam_tpu/slam/tracking.py``: NOT_INITIALIZED -> OK ->
+LOST, depth-seeded initialization, motion-model tracking with the
+7/14 px retry, the appearance-only fallback and trajectory bookkeeping.
+Local-map tracking, keyframe creation and relocalization plug in through
+the hooks that ``slam.system.SlamSystem`` installs when mapping is on
+(``local_map_hook``, ``new_kf_hook``, ``reloc_hook``), as in the JAX
+package.
 
 The control flow lives on the host in plain Python; every compute step
 (extraction, matching, pose LM) runs on the tracker's device.  The host
@@ -47,9 +50,9 @@ class TrackingState(enum.Enum):
 
 @dataclasses.dataclass
 class FrameRecord:
-    """Per-frame trajectory bookkeeping (tracking.hpp:59-62 lists).  With
-    mapping off there is no reference keyframe, so only the absolute
-    pose is kept."""
+    """Per-frame trajectory bookkeeping (tracking.hpp:59-62 lists): the
+    absolute pose at track time.  The pose relative to the reference
+    keyframe is ``slam.system.SystemRecord``'s."""
 
     timestamp: float
     T_cw: np.ndarray  # absolute pose at track time (4,4)
@@ -82,10 +85,10 @@ def _pose_obs_from_assign(
 
 
 class Tracker:
-    """Frame-to-frame RGB-D tracker (the minimum end-to-end slice):
-    motion-model projection matching against the last frame's
-    depth-seeded landmarks + pose-only LM, with the appearance-only
-    fallback.  All state lives on ``device``."""
+    """Frame-to-frame RGB-D tracker: motion-model projection matching
+    against the last frame's landmarks + pose-only LM, with the
+    appearance-only fallback; local-map tracking and keyframe creation
+    plug in through the hooks.  All state lives on ``device``."""
 
     def __init__(self, cfg: SlamConfig, device="cpu"):
         self.cfg = cfg
@@ -103,6 +106,13 @@ class Tracker:
         self.last_lms_valid = None
         self.records: List[FrameRecord] = []
         self.n_inliers = 0
+        self.local_map_hook = None  # set by SlamSystem when mapping runs
+        self.new_kf_hook = None
+        self.reloc_hook = None
+        self.pending_landmarks = None  # (p_w, valid) supplied by the hook
+        # Frames since the last successful relocalization: within 1 s
+        # (= fps frames) the local-map gate tightens (tracking.cpp:630-636).
+        self.frames_since_reloc = 1 << 20
 
     # -- per-sensor frame ingestion ------------------------------------
     def _extract(self, gray: np.ndarray) -> FrameFeatures:
@@ -150,13 +160,21 @@ class Tracker:
         self.T_cw = torch.eye(4, device=self.device)
         self._adopt_frame(feats)
         self.state = TrackingState.OK
+        if self.new_kf_hook is not None:
+            self.new_kf_hook(timestamp, feats, self.T_cw, force=True)
         return True
 
     def _adopt_frame(self, feats: FrameFeatures):
         self.last_feats = feats
-        self.last_lms, self.last_lms_valid = landmark_positions(
-            self.cam, feats, self.T_cw
-        )
+        if self.pending_landmarks is not None:
+            # The local-map hook supplies map-point positions where the
+            # frame was matched to the map (better than raw depth).
+            self.last_lms, self.last_lms_valid = self.pending_landmarks
+            self.pending_landmarks = None
+        else:
+            self.last_lms, self.last_lms_valid = landmark_positions(
+                self.cam, feats, self.T_cw
+            )
 
     def _track(self, timestamp: float, feats: FrameFeatures):
         lost = False
@@ -165,13 +183,22 @@ class Tracker:
             if not self._initialize(timestamp, feats):
                 lost = True
         else:
-            T_pred = self.velocity @ self.T_cw
-            ok = self._track_motion(feats, T_pred)
-            if not ok:
-                # The reference falls back to reference-KF BoW tracking;
-                # the dense equivalent matches appearance-only against
-                # the last frame.
-                ok = self._track_appearance(feats)
+            self.frames_since_reloc += 1
+            if self.state == TrackingState.LOST and self.reloc_hook is not None:
+                # LOST -> relocalization only (tracking.cpp:257-259).
+                ok = self.reloc_hook(self, timestamp, feats)
+                if ok:
+                    self.frames_since_reloc = 0
+            else:
+                T_pred = self.velocity @ self.T_cw
+                ok = self._track_motion(feats, T_pred)
+                if not ok:
+                    # The reference falls back to reference-KF BoW
+                    # tracking; the dense equivalent matches
+                    # appearance-only against the last frame.
+                    ok = self._track_appearance(feats)
+            if ok and self.local_map_hook is not None:
+                ok = self.local_map_hook(self, timestamp, feats)
             if ok:
                 T_last = self.T_cw
                 # velocity = T_curr @ inv(T_last) (tracking.cpp:273-281)
