@@ -11,12 +11,16 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      one process per source, all started together;
   3. K1 (FAST-9 + NMS) against its plain PyTorch version on the 8
      pyramid levels of ``bench.make_frames()`` frame 0 and on a random
-     480x640 image: bit-identical, with ms per call (CUDA events around
-     runs of back-to-back calls);
+     480x640 image: bit-identical, with ms per frame (8 levels);
   4. K2 (gated Hamming best/second) against its plain version on the
-     real frame 0 -> 1 search (both ``check_ur`` values) and on random
-     problems, the local-map search's 8192 x 1024 included: identical
-     idx, best and second, with ms per call;
+     real frame 0 -> 1 search and on problems from ``proj_problem``
+     (``ydorbslam_tpu_torch/testing.py``):
+     random ones (the local-map search's 8192 x 1024 included), a
+     tie-heavy one, one where no pair passes, one where exactly one
+     column passes, and ragged shapes (M, N in 1, 31, 33, 777, and an N
+     of three and a bit 512-column tiles), each with both ``check_ur``
+     values: identical idx, best and second for both radii, with ms per
+     call;
   5. the mapping-off path: ``SlamSystem(..., enable_mapping=False,
      device="cuda")`` tracks the first 60 frames; 0 lost frames,
      ATE < 0.02 m, every K1 and K2 launch counted;
@@ -32,11 +36,16 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      times, K2 at least twice per frame after the first, K3 3x and K4 17x
      per local BA.  It prints frames/s and the median ms/frame after 20
      warm-up frames, the keyframes inserted and culled, the live map
-     points and the synchronised ms per ``mapping_step``;
-  9. K3 (batched pair-gated best/second) against its plain version on the
-     real keyframe pairs captured in phase 8 (both modes) and on random
-     problems at B=20, M=N=1024 and a ragged M=1000, N=777: identical
-     idx, best and second, with ms per call;
+     points and the synchronised ms per ``mapping_step``.  The last K2
+     input of each search (motion, local map), the last K3 input of each
+     mode and the last K4 input are kept for phases 9 and 10;
+  9. K2 and K3 on the real inputs of phase 8, and K3 on problems from
+     ``pair_problem`` (random at B=20, M=N=1024 and ragged M=1000,
+     N=777; tie-heavy, none and exactly one passing; ragged M, N in 1,
+     31, 33, 777 and an N of three and a bit tiles), both modes:
+     identical idx, best and second.  On the real inputs it prints the
+     gated pairs (the basis of the bound) and ms per call of the kernel
+     and of the plain version;
  10. K4 (BA observation pass) against its plain version on a real local-BA
      input captured in phase 8 and on a random one at C=96, P=4096, O=16:
      within rtol 2e-4, atol 2e-3, with the errors and ms per call;
@@ -45,10 +54,22 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      pattern and keyframe insertions, and camera centres at track time
      within 1e-3 m.
 
+Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
+"wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
+host's dispatch of each call is part of it.  "device" (``device_ms``)
+holds the stream with a spin kernel (``torch.cuda._sleep``) while the
+host enqueues the calls between the two events, so the events time the
+card's own work back to back.
+
 It prints one JSON line with every kernel's name, route, source, the
 TPU kernel it replaces, launches in the main path (phase 8), max abs
-error and times, then the nvidia-smi line, and last ``{"ok": true,
-"device": {...}}``.  Any failure exits non-zero without the last line.
+error, device ms per call on the main path's input (K1: per frame of 8
+levels) and that of the plain version, the bound on that input (the
+larger of its bytes over 3.35 TB/s and its operations over the H100's
+peak rate for them, see ``_bound``) and what binds it, and the time of
+one PyTorch call computing the same function (null: there is none);
+then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero without the last line.
 """
 import json
 import os
@@ -67,28 +88,30 @@ JAX_CPU_ATE_MAPPING = 0.001814043883989798
 N_PAR_MAP = 30  # CPU parity frames with mapping on: keyframe 3 and its local BA at frame 26
 K4_RTOL, K4_ATOL = 2e-4, 2e-3
 
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
+HBM_BYTES_S = 3.35e12
+LANE_OPS_S = 33.5e12  # fp32/int32 lane operations outside the tensor cores (67 TFLOP/s counts an FMA as 2)
+POPC_S = 16 * 132 * 1.98e9  # __popc: 16 per SM per clock (compute capability 9.0), 132 SMs, 1.98 GHz
+# Lane operations per unit of work, counted from the kernels' formulas:
+# subtractions, absolute values, multiplies, adds, min/max, compares and
+# selects; the logic that combines predicates is not counted.
+K1_OPS_PX = 205  # 16 differences, 16 negations, two 9-arc min/max trees of 79, 2 to combine, 8 NMS and 4 border compares, 1 select
+K2_GATE_OPS = {False: 11, True: 16}  # per pair, by check_ur
+K3_GATE_OPS = {"proj": 18, "epi": 11}  # per pair, by mode
+DIST_OPS = 15  # per popcounted pair: 8 XOR and 7 adds, beside its 8 __popc
+UPDATE_OPS = 5  # per gated (pair, radius): compare, min, 3 selects
+K4_OPS_OBS = 725  # per observation: projection, residuals, Huber weight, Jacobians, 72 weighted 3-term row sums, 13 accumulations
+K4_ROWS_READ = 27  # input rows of the 32 that the observation pass reads
 
-def _median_ms(fn, calls=20, reps=11, warm=3):
-    """ms per call of fn(): CUDA events around ``calls`` back-to-back
-    calls, divided by ``calls``; the median of ``reps`` such runs.  For
-    launches this small the host's dispatch rate is part of the time."""
-    import torch
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    times.sort()
-    return times[len(times) // 2]
+def _bound(nbytes, lane_ops, popc=0.0):
+    """The least ms an H100 could take for work that moves ``nbytes`` and
+    does ``lane_ops`` lane operations and ``popc`` popcounts, and what
+    binds it ("bytes" or "operations")."""
+    t = {"bytes": nbytes / HBM_BYTES_S,
+         "operations": max(lane_ops / LANE_OPS_S, popc / POPC_S)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
 
 
 def _centres(poses):
@@ -139,37 +162,57 @@ def _run(frames, device, mapping):
     return system, secs, poses, lost, kfs
 
 
-def _random_pairs(rng, B, M, N, mode):
-    """A K3 problem with near-duplicate descriptors and gates that pass."""
-    import numpy as np
+def _same_k2(prob, check_ur, label):
+    """K2 against the plain version on one problem: idx, best and second
+    of both radii identical, or raise."""
+    import torch
 
-    da = rng.integers(0, 2**32, (B, M, 8), dtype=np.uint64).astype(np.uint32)
-    noise = np.bitwise_and.reduce(
-        rng.integers(0, 2**32, (3, B, N, 8), dtype=np.uint64).astype(np.uint32), axis=0)
-    db = np.take_along_axis(da, rng.integers(0, M, (B, N, 1)), 1) ^ noise
-    z, zb = np.zeros((B, M)), np.zeros((B, N))
-    ub, vb = rng.uniform(0, 640, (B, N)), rng.uniform(0, 480, (B, N))
-    if mode == "proj":
-        # Projections near a b keypoint, with a right-x consistent with
-        # its disparity, so the window and chi2 gates pass and fail.
-        src = rng.integers(0, N, (B, M))
-        disp = rng.uniform(1, 30, (B, N))
-        ua = np.take_along_axis(ub, src, 1) + rng.normal(0, 1.5, (B, M))
-        va = np.take_along_axis(vb, src, 1) + rng.normal(0, 1.5, (B, M))
-        ura = ua - np.take_along_axis(disp, src, 1) + rng.normal(0, 1.0, (B, M))
-        boct = rng.integers(0, 5, (B, N))
-        lo = np.take_along_axis(boct, src, 1) - rng.integers(0, 2, (B, M))
-        aa = np.stack([ua, va, ura, rng.uniform(3, 12, (B, M)), z, lo, lo + 1,
-                       rng.random((B, M)) < 0.9], -1)
-        ab = np.stack([ub, vb, np.where(rng.random((B, N)) < 0.7, ub - disp, -1), boct,
-                       rng.random((B, N)) < 0.9, 1.0 / 1.44 ** boct, zb, zb], -1)
-    else:
-        la, lb = rng.normal(0, 1, (B, M)), rng.normal(0, 1, (B, M))
-        boct = rng.integers(0, 5, (B, N))
-        aa = np.stack([la, lb, rng.normal(0, 300, (B, M)), 3.84 * np.maximum(la * la + lb * lb, 1e-18),
-                       rng.integers(0, 5, (B, M)), rng.random((B, M)) < 0.9, z, z], -1)
-        ab = np.stack([ub, vb, 1.44 ** boct * 100.0, boct, rng.random((B, N)) < 0.9, zb, zb, zb], -1)
-    return da.view(np.int32), aa.astype(np.float32), db.view(np.int32), ab.astype(np.float32)
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.ops.hamming import proj_best2_plain
+
+    p = proj_best2_plain(*prob, check_ur=check_ur)
+    k = kernels.proj_best2_cuda(*prob, check_ur=check_ur)
+    torch.cuda.synchronize()
+    if not all(torch.equal(kk, pp) for kk, pp in zip((*k[0], *k[1]), (*p[0], *p[1]))):
+        raise AssertionError(f"K2 differs from plain on {label}, check_ur={check_ur}")
+
+
+def _same_k3(prob, mode, label):
+    """K3 against the plain version on one problem."""
+    import torch
+
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.ops.hamming import pair_best2_plain
+
+    p = pair_best2_plain(*prob, mode=mode)
+    k = kernels.pair_best2_cuda(*prob, mode=mode)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        raise AssertionError(f"K3 differs from plain on {label}")
+
+
+def _k2_work(prob, check_ur):
+    """Pairs and gated pairs of one K2 call, and its bound (ms, what
+    binds): the gate for every pair, the distance for the pairs that pass
+    either radius, the update for each radius that passes."""
+    from ydorbslam_tpu_torch.ops.hamming import proj_gates
+
+    M, N = prob[0].shape[0], prob[2].shape[0]
+    gn, gw = proj_gates(prob[1], prob[3], check_ur)
+    gated = int((gn | gw).sum())
+    ops = (M * N * K2_GATE_OPS[bool(check_ur)] + gated * DIST_OPS
+           + (int(gn.sum()) + int(gw.sum())) * UPDATE_OPS)
+    return M * N, gated, *_bound((M + N) * 64 + 6 * M * 4, ops, gated * 8)
+
+
+def _k3_work(prob, mode):
+    """As ``_k2_work`` for one K3 call."""
+    from ydorbslam_tpu_torch.ops.hamming import pair_gates
+
+    B, M, N = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
+    gated = int(pair_gates(prob[1], prob[3], mode).sum())
+    ops = B * M * N * K3_GATE_OPS[mode] + gated * (DIST_OPS + UPDATE_OPS)
+    return B * M * N, gated, *_bound(B * (M + N) * 64 + 3 * B * M * 4, ops, gated * 8)
 
 
 def main() -> int:
@@ -193,6 +236,9 @@ def main() -> int:
     from ydorbslam_tpu_torch.ops.pyramid import build_pyramid
     from ydorbslam_tpu_torch.optim import lm_kernel, schur
     from ydorbslam_tpu_torch.slam import matchers, system as system_mod, triangulate
+    from ydorbslam_tpu_torch.testing import (
+        device_ms, on_device, pair_problem, proj_problem, wall_ms,
+    )
 
     dev = torch.device("cuda")
     # 1. device
@@ -228,14 +274,23 @@ def main() -> int:
         if not torch.equal(k, p):
             raise AssertionError(f"K1 differs from plain at shape {tuple(img.shape)}")
         err = max(err, float((k - p).abs().max()))
-    k1_ms = _median_ms(lambda: [kernels.fast_score_nms_cuda(l, DETECT_BORDER) for l in levels])
-    k1_plain = _median_ms(
+    k1_ms = wall_ms(lambda: [kernels.fast_score_nms_cuda(l, DETECT_BORDER) for l in levels])
+    k1_plain = wall_ms(
         lambda: [nms_and_border(fast_score_map(l), DETECT_BORDER) for l in levels]
     )
-    report["fast_score_nms"] = dict(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain)
+    k1_dev = device_ms(lambda: [kernels.fast_score_nms_cuda(l, DETECT_BORDER) for l in levels])
+    k1_plain_dev = device_ms(
+        lambda: [nms_and_border(fast_score_map(l), DETECT_BORDER) for l in levels]
+    )
+    # Bound per frame: each pixel of the 8 levels read once and written once.
+    px = sum(l.numel() for l in levels)
+    k1_bound, k1_by = _bound(px * 8, px * K1_OPS_PX)
+    report["fast_score_nms"] = dict(max_abs_err=err, ms=k1_dev, plain_ms=k1_plain_dev,
+                                    bound_ms=k1_bound, bound_by=k1_by)
     print(f"phase 3 K1: bit-identical on 8 levels {[tuple(l.shape) for l in levels]} "
-          f"and random 480x640; per frame (8 levels) kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain:.4f} ms", flush=True)
+          f"and random 480x640; per frame (8 levels, {px} px): kernel wall {k1_ms:.4f} ms, "
+          f"device {k1_dev:.4f} ms; plain wall {k1_plain:.4f} ms, device "
+          f"{k1_plain_dev:.4f} ms; bound {k1_bound:.5f} ms ({k1_by})", flush=True)
 
     # 4. K2 against plain: the real frame 0 -> 1 motion search, then random.
     from ydorbslam_tpu_torch.ops.stereo import fill_depth_from_rgbd
@@ -255,48 +310,27 @@ def main() -> int:
     attr_b = matchers._pack_cur_attr(curr)
     real = (tr.last_feats.desc, attr_a, curr.desc, attr_b)
     rng = np.random.default_rng(1)
-    problems = [("real", real)]
-    for M, N in ((1024, 1024), (1000, 777), (8192, 1024)):
-        uv_b = rng.uniform([8, 8], [632, 472], (N, 2))
-        tgt = rng.integers(0, N, M)
-        uv_a = uv_b[tgt] + rng.normal(0, 6, (M, 2))
-        desc_b = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
-        desc_a = desc_b[tgt] ^ (rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
-                                & rng.integers(0, 2**32, (M, 8), dtype=np.uint32))
-        ra = rng.uniform(4, 10, M)
-        aa = np.stack([uv_a[:, 0], uv_a[:, 1], uv_a[:, 0] - rng.uniform(1, 30, M), ra,
-                       2 * ra, rng.integers(-1, 3, M), rng.integers(4, 9, M),
-                       rng.random(M) < 0.9], -1)
-        ab = np.stack([uv_b[:, 0], uv_b[:, 1],
-                       np.where(rng.random(N) < 0.7, uv_b[:, 0] - rng.uniform(1, 30, N), -1),
-                       rng.integers(0, 8, N), rng.random(N) < 0.9,
-                       np.zeros(N), np.zeros(N), np.zeros(N)], -1)
-        problems.append((f"random {M}x{N}", tuple(
-            torch.as_tensor(x).to(dev) for x in (
-                desc_a.view(np.int32), aa.astype(np.float32),
-                desc_b.view(np.int32), ab.astype(np.float32)))))
-    err = 0.0
+    problems = [("real frame 0->1", real)]
+    for kind, M, N in (("random", 1024, 1024), ("random", 1000, 777), ("random", 8192, 1024),
+                       ("ties", 1024, 1024), ("none", 1024, 1024), ("one", 1024, 1024),
+                       ("random", 1, 777), ("random", 31, 33), ("random", 33, 31),
+                       ("random", 777, 1), ("ties", 100, 1537)):
+        problems.append((f"{kind} {M}x{N}", on_device(dev, proj_problem(rng, M, N, kind))))
     for label, prob in problems:
         for check_ur in (True, False):
-            k = kernels.proj_best2_cuda(*prob, check_ur=check_ur)
-            p = proj_best2_plain(*prob, check_ur=check_ur)
-            torch.cuda.synchronize()
-            for kk, pp in zip((*k[0], *k[1]), (*p[0], *p[1])):
-                if not torch.equal(kk.to(torch.int64), pp.to(torch.int64)):
-                    raise AssertionError(f"K2 differs from plain on {label}, check_ur={check_ur}")
-                err = max(err, float((kk.to(torch.int64) - pp.to(torch.int64)).abs().max()))
-    n_pass = int((k[1][0] >= 0).sum())
-    k2_ms = _median_ms(lambda: kernels.proj_best2_cuda(*real, check_ur=True))
-    k2_plain = _median_ms(lambda: proj_best2_plain(*real, check_ur=True))
-    big = problems[-1][1]
-    k2_big_ms = _median_ms(lambda: kernels.proj_best2_cuda(*big, check_ur=False))
-    k2_big_plain = _median_ms(lambda: proj_best2_plain(*big, check_ur=False))
-    report["proj_best2"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=k2_plain)
-    print(f"phase 4 K2: identical on real {tuple(real[0].shape)}x{tuple(real[2].shape)} "
-          f"and {[l for l, _ in problems[1:]]}, both check_ur; real search kernel "
-          f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms; 8192x1024 (local-map shape) kernel "
-          f"{k2_big_ms:.4f} ms, plain {k2_big_plain:.4f} ms (rows with a candidate in the "
-          f"last random problem: {n_pass})", flush=True)
+            _same_k2(prob, check_ur, label)
+    big = problems[3][1]
+    k2_ms = wall_ms(lambda: kernels.proj_best2_cuda(*real, check_ur=True))
+    k2_plain = wall_ms(lambda: proj_best2_plain(*real, check_ur=True))
+    k2_big_ms = wall_ms(lambda: kernels.proj_best2_cuda(*big, check_ur=False))
+    k2_big_plain = wall_ms(lambda: proj_best2_plain(*big, check_ur=False))
+    k2_dev = device_ms(lambda: kernels.proj_best2_cuda(*real, check_ur=True))
+    k2_big_dev = device_ms(lambda: kernels.proj_best2_cuda(*big, check_ur=False))
+    print(f"phase 4 K2: identical on {[l for l, _ in problems]} "
+          f"{tuple(real[0].shape)}x{tuple(real[2].shape)}, both check_ur; real search "
+          f"kernel wall {k2_ms:.4f} ms, device {k2_dev:.4f} ms, plain wall {k2_plain:.4f} ms; "
+          f"random 8192x1024 (local-map shape) kernel wall {k2_big_ms:.4f} ms, device "
+          f"{k2_big_dev:.4f} ms, plain wall {k2_big_plain:.4f} ms", flush=True)
 
     # 5. the mapping-off path
     kernels.reset_launch_counts()
@@ -355,11 +389,16 @@ def main() -> int:
     if lost_cpu != off_lost[:N_WARM] or not diff < 1e-3:
         raise AssertionError("CPU and CUDA runs disagree with mapping off")
 
-    # 8. the main path: mapping on.  The K3 and K4 inputs of the run are
-    # kept (references, not copies) for phases 9 and 10, and each
-    # mapping_step is timed between synchronisations.
+    # 8. the main path: mapping on.  The K2 inputs of the run are copied,
+    # the K3 and K4 inputs kept (references), for phases 9 and 10, and
+    # each mapping_step is timed between synchronisations.
     captured = {}
     step_ms = []
+
+    def keep_k2(desc_a, attr_a, desc_b, attr_b, check_ur=False):
+        captured[("proj_best2", bool(check_ur), desc_a.shape[0])] = tuple(
+            t.clone() for t in (desc_a, attr_a, desc_b, attr_b))
+        return hamming.proj_best2(desc_a, attr_a, desc_b, attr_b, check_ur)
 
     def keep_pairs(desc_a, attr_a, desc_b, attr_b, mode="proj"):
         captured[mode] = (desc_a, attr_a, desc_b, attr_b)
@@ -369,7 +408,8 @@ def main() -> int:
         captured["lm_obs"] = inp
         return lm_kernel.lm_obs(inp)
 
-    patches = [(triangulate, "pair_best2", keep_pairs), (schur, "lm_obs", keep_obs),
+    patches = [(matchers, "proj_best2", keep_k2), (triangulate, "pair_best2", keep_pairs),
+               (schur, "lm_obs", keep_obs),
                (system_mod, "mapping_step",
                 timed(system_mod.mapping_step, "mapping_step", {"mapping_step": step_ms}))]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -421,32 +461,55 @@ def main() -> int:
     for k in kernels.launch_counts():
         report.setdefault(k, {})["launches"] = launches[k]
 
-    # 9. K3 against plain: the real pairs of the run, then random problems.
+    # 9. K2 and K3 on the real inputs of phase 8 (the motion search, the
+    # local-map search with the most rows, the last K3 pairs of each
+    # mode), then K3 on generated problems.
+    lines = []
+    for label, ur in (("motion", True), ("local map", False)):
+        prob = captured[max(k for k in captured if k[0] == "proj_best2" and k[1] == ur)]
+        _same_k2(prob, ur, f"phase-8 {label} search")
+        pairs, gated, bms, bby = _k2_work(prob, ur)
+        dev_ms = device_ms(lambda: kernels.proj_best2_cuda(*prob, check_ur=ur))
+        wall = wall_ms(lambda: kernels.proj_best2_cuda(*prob, check_ur=ur))
+        plain = device_ms(lambda: proj_best2_plain(*prob, check_ur=ur), calls=5, reps=5)
+        lines.append(f"K2 {label} {prob[0].shape[0]}x{prob[2].shape[0]} check_ur={ur}: "
+                     f"{gated} of {pairs} pairs gated; device {dev_ms:.4f} ms; wall {wall:.4f} ms; "
+                     f"plain device {plain:.4f} ms; bound {bms:.5f} ms ({bby})")
+        if ur:
+            report["proj_best2"].update(max_abs_err=0.0, ms=dev_ms, plain_ms=plain,
+                                        bound_ms=bms, bound_by=bby)
     rng = np.random.default_rng(3)
     k3_cases = [(f"real {mode} B={captured[mode][0].shape[0]}", mode, captured[mode])
                 for mode in ("epi", "proj")]
     for B, M, N in ((20, 1024, 1024), (20, 1000, 777)):
         for mode in ("epi", "proj"):
-            k3_cases.append((f"random {mode} {B}x{M}x{N}", mode, tuple(
-                torch.as_tensor(x).to(dev) for x in _random_pairs(rng, B, M, N, mode))))
-    hits = []
+            k3_cases.append((f"random {mode} {B}x{M}x{N}", mode,
+                             on_device(dev, pair_problem(rng, B, M, N, mode))))
+    for kind, B, M, N in (("ties", 20, 1024, 1024), ("none", 4, 300, 200), ("one", 4, 300, 200),
+                          ("random", 3, 1, 777), ("random", 3, 31, 33), ("random", 3, 33, 1),
+                          ("random", 3, 777, 1537)):
+        for mode in ("epi", "proj"):
+            k3_cases.append((f"{kind} {mode} {B}x{M}x{N}", mode,
+                             on_device(dev, pair_problem(rng, B, M, N, mode, kind))))
     for label, mode, prob in k3_cases:
-        k = kernels.pair_best2_cuda(*prob, mode=mode)
-        p = pair_best2_plain(*prob, mode=mode)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(k, p)):
-            raise AssertionError(f"K3 differs from plain on {label}")
-        hits.append(f"{label}: {int((p[1] < 60).sum())} rows <= 59")
-    times = {}
+        _same_k3(prob, mode, label)
     for mode in ("epi", "proj"):
-        times[mode] = (_median_ms(lambda: kernels.pair_best2_cuda(*captured[mode], mode=mode)),
-                       _median_ms(lambda: pair_best2_plain(*captured[mode], mode=mode),
-                                  calls=5, reps=5))
-    report["pair_best2"].update(max_abs_err=0.0, ms=times["proj"][0], plain_ms=times["proj"][1])
-    print(f"phase 9 K3: identical on {[l for l, _, _ in k3_cases]}; ms per call kernel / "
-          f"plain: epi (B={captured['epi'][0].shape[0]}) {times['epi'][0]:.4f} / "
-          f"{times['epi'][1]:.4f}, proj (B={captured['proj'][0].shape[0]}) "
-          f"{times['proj'][0]:.4f} / {times['proj'][1]:.4f} | {'; '.join(hits)}", flush=True)
+        prob = captured[mode]
+        pairs, gated, bms, bby = _k3_work(prob, mode)
+        dev_ms = device_ms(lambda: kernels.pair_best2_cuda(*prob, mode=mode))
+        wall = wall_ms(lambda: kernels.pair_best2_cuda(*prob, mode=mode))
+        plain = device_ms(lambda: pair_best2_plain(*prob, mode=mode), calls=5, reps=5)
+        plain_wall = wall_ms(lambda: pair_best2_plain(*prob, mode=mode), calls=5, reps=5)
+        lines.append(f"K3 {mode} {tuple(prob[0].shape[:2])}x{prob[2].shape[1]}: {gated} of "
+                     f"{pairs} pairs gated; device {dev_ms:.4f} ms; wall {wall:.4f} ms; plain "
+                     f"device {plain:.4f} ms, "
+                     f"wall {plain_wall:.4f} ms; bound {bms:.5f} ms ({bby})")
+        if mode == "proj":
+            report["pair_best2"].update(max_abs_err=0.0, ms=dev_ms, plain_ms=plain,
+                                        bound_ms=bms, bound_by=bby)
+    print(f"phase 9 K2 and K3 on the inputs of phase 8: identical on the real searches; K3 "
+          f"identical on {[l for l, _, _ in k3_cases]} | "
+          + " | ".join(lines), flush=True)
 
     # 10. K4 against plain: the real local-BA input, then a random one.
     real_inp = captured["lm_obs"]
@@ -485,17 +548,25 @@ def main() -> int:
                     raise AssertionError(f"K4 differs from plain on {label}, huber={hub}: "
                                          f"{int(bad.sum())} entries")
                 errs.append(float((a - b).abs().max()))
-    k4_ms = _median_ms(lambda: kernels.lm_obs_cuda(real_inp))
-    k4_plain = _median_ms(lambda: lm_kernel.lm_obs_plain(real_inp), calls=5, reps=5)
+    k4_ms = wall_ms(lambda: kernels.lm_obs_cuda(real_inp))
+    k4_plain = wall_ms(lambda: lm_kernel.lm_obs_plain(real_inp), calls=5, reps=5)
     k4_rnd = rnd.to(dev)
-    k4_rnd_ms = _median_ms(lambda: kernels.lm_obs_cuda(k4_rnd))
-    k4_rnd_plain = _median_ms(lambda: lm_kernel.lm_obs_plain(k4_rnd), calls=5, reps=5)
-    report["lm_obs"].update(max_abs_err=max(errs), ms=k4_ms, plain_ms=k4_plain)
+    k4_rnd_ms = wall_ms(lambda: kernels.lm_obs_cuda(k4_rnd))
+    k4_rnd_plain = wall_ms(lambda: lm_kernel.lm_obs_plain(k4_rnd), calls=5, reps=5)
+    k4_dev = device_ms(lambda: kernels.lm_obs_cuda(real_inp))
+    k4_plain_dev = device_ms(lambda: lm_kernel.lm_obs_plain(real_inp), calls=5, reps=5)
+    # Bound: the rows the pass reads, every output written once.
+    _, O4, P4 = real_inp.shape
+    k4_bound, k4_by = _bound(((K4_ROWS_READ + lm_kernel.NOUT_Q) * O4 * P4
+                              + lm_kernel.NOUT_P * P4) * 4, O4 * P4 * K4_OPS_OBS)
+    report["lm_obs"].update(max_abs_err=max(errs), ms=k4_dev, plain_ms=k4_plain_dev,
+                            bound_ms=k4_bound, bound_by=k4_by)
     print(f"phase 10 K4: within rtol {K4_RTOL}, atol {K4_ATOL} on real "
           f"{tuple(real_inp.shape)} and random {C}x{P}x{O}, both Huber settings; max abs "
-          f"errors {['%.3e' % e for e in errs]}; ms per call kernel / plain: real "
-          f"{k4_ms:.4f} / {k4_plain:.4f}, random {k4_rnd_ms:.4f} / {k4_rnd_plain:.4f}",
-          flush=True)
+          f"errors {['%.3e' % e for e in errs]}; ms per call kernel / plain: real wall "
+          f"{k4_ms:.4f} / {k4_plain:.4f}, device {k4_dev:.4f} / {k4_plain_dev:.4f}; random "
+          f"wall {k4_rnd_ms:.4f} / {k4_rnd_plain:.4f}; bound on the real input "
+          f"{k4_bound:.5f} ms ({k4_by})", flush=True)
 
     # 11. parity against the CPU, mapping on
     cpu_sys, _, poses_cpu, lost_cpu, kfs_cpu = _run(frames[:N_PAR_MAP], "cpu", mapping=True)
@@ -524,7 +595,8 @@ def main() -> int:
         r = report[k]
         rows.append(dict(name=k, route="cuda", source=src, replaces=rep,
                          launches=r["launches"], max_abs_err=r["max_abs_err"],
-                         ms=r["ms"], plain_ms=r["plain_ms"]))
+                         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=None))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -157,8 +157,10 @@ def test_unported_paths_raise(frames, runs):
     """Loop closing and relocalization are refused loudly, naming their
     ROADMAP slices; with mapping off loop closing has nothing to run on."""
     with pytest.raises(NotImplementedError, match="slice 11"):
-        SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True)
-    SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=False, enable_loop_closing=True)
+        SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+                   device="cpu")
+    SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=False, enable_loop_closing=True,
+               device="cpu")
     _, fr = frames
     port = runs["port"]
     state = port.tracker.state
@@ -172,7 +174,8 @@ def test_unported_paths_raise(frames, runs):
 
 def test_reset_clears_the_map(frames):
     _, fr = frames
-    s = SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=False)
+    s = SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=False,
+                   device="cpu")
     assert s.track_rgbd(*fr[0])
     assert s.n_keyframes == 1 and int(s.map.mp_valid.sum()) > 100
     s.reset()

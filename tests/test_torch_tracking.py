@@ -157,6 +157,24 @@ def test_unported_paths_raise_and_dispatch_refuses_other_devices():
         proj_best2(d, a, d, a)
 
 
+def test_default_device_is_the_card():
+    """SlamSystem and Tracker put their state on the card unless asked
+    otherwise; without one, the CUDA request raises instead of falling
+    back to the CPU."""
+    cfg = config_from_dict(dataclasses.asdict(make_cfg()))
+
+    def build():
+        return (Tracker(cfg),
+                SlamSystem(cfg, Sensor.RGBD, enable_mapping=True, enable_loop_closing=False))
+
+    if torch.cuda.is_available():
+        tracker, system = build()
+        assert tracker.T_cw.is_cuda and system.map.mp_valid.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
+
+
 def test_port_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"

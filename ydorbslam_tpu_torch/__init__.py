@@ -4,14 +4,17 @@ The JAX package beside this one is the reference; this package mirrors
 its module layout and names so each module's counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or ``ydorbslam_tpu``.
 
-What is ported so far is the RGB-D tracking slice with mapping off
-(``slam.system.SlamSystem(..., enable_mapping=False)``): ORB extraction,
-RGB-D depth association, motion-model projection matching, pose-only LM
-and the appearance fallback.  The two TPU kernels on that path have
-hand-written CUDA counterparts for Hopper (``csrc/``); every kernel has
-a plain PyTorch version of the same contract that CPU tensors take.
+What is ported so far is the synchronous RGB-D path with local mapping
+on or off (``slam.system.SlamSystem(..., enable_loop_closing=False)``):
+ORB extraction, RGB-D depth association, projection matching, pose-only
+LM, local-map tracking, keyframe insertion and local mapping with its
+bundle adjustment.  The four TPU kernels on that path have hand-written
+CUDA counterparts for Hopper (``csrc/``); every kernel has a plain
+PyTorch version of the same contract that CPU tensors take.
 
-State is created on an explicit ``device``; nothing here picks one.
+``SlamSystem`` and ``Tracker`` put their state on the card
+(``device="cuda"``) unless the caller passes another device, as the CPU
+tests pass ``device="cpu"``; without a card a CUDA request raises.
 """
 
 __version__ = "0.1.0"

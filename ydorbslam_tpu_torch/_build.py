@@ -10,8 +10,9 @@ together, and the objects are then linked:
     nvcc -shared -o build/kernels/<hash>/libydorb_kernels.so build/kernels/<hash>/*.o
 
 The library goes under ``build/kernels/`` at the repository root (listed
-in ``.gitignore``), in a directory named by a hash of the sources and
-flags, so an edited source builds anew and an unchanged one is reused.
+in ``.gitignore``), in a directory named by a hash of the sources, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged tree is reused.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
@@ -56,6 +61,9 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(" ".join(SOURCE_FLAGS.get(src.name, ())).encode())
         h.update(src.read_bytes())
+    for hdr in _headers():
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
@@ -113,9 +121,9 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ydorb_fast_score_nms.argtypes = [p, p, i, i, i, p]
     lib.ydorb_fast_score_nms.restype = i
-    lib.ydorb_proj_best2.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.ydorb_proj_best2.argtypes = [p, p, p, p, i, i, i, p, i, p]
     lib.ydorb_proj_best2.restype = i
-    lib.ydorb_pair_best2.argtypes = [p, p, p, p, i, i, i, i, p, p]
+    lib.ydorb_pair_best2.argtypes = [p, p, p, p, i, i, i, i, p, i, p]
     lib.ydorb_pair_best2.restype = i
     lib.ydorb_lm_obs.argtypes = [p, i, i, p, p, p]
     lib.ydorb_lm_obs.restype = i

@@ -59,19 +59,12 @@ def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     return d.to(torch.int32)
 
 
-def proj_best2_plain(
-    desc_a: torch.Tensor, attr_a: torch.Tensor,
-    desc_b: torch.Tensor, attr_b: torch.Tensor,
-    check_ur: bool = False,
-) -> Tuple[Best2, Best2]:
-    """Plain K2.  Gates per (a, b) pair: both valid, octave_b in
-    [oct_lo, oct_hi], |du| <= r and |dv| <= r, and with ``check_ur``
-    also |dur| <= r unless right_u_b < 0.  Returns
-    ((idx_n, best_n, second_n), (idx_w, best_w, second_w)), each (M,)
-    int32.  The lowest column wins a tie, a tied duplicate of the best
-    counts as second, the sentinels are 10000 and idx is -1 where no
-    column passes (the TPU kernel's rule)."""
-    d = distance_matrix(desc_a, desc_b)
+def proj_gates(
+    attr_a: torch.Tensor, attr_b: torch.Tensor, check_ur: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, N) bool gates of K2 for the narrow and the wide radius: both
+    valid, octave_b in [oct_lo, oct_hi], |du| <= r and |dv| <= r, and
+    with ``check_ur`` also |dur| <= r unless right_u_b < 0."""
     a = attr_a.T[:, :, None]  # a[lane] is (M, 1)
     b = attr_b.T[:, None, :]  # b[lane] is (1, N)
     du = torch.abs(b[B_U] - a[A_U])
@@ -86,6 +79,23 @@ def proj_best2_plain(
         if check_ur:
             dur = torch.abs(b[B_UR] - a[A_UR])
             win = win & ((b[B_UR] < 0) | (dur <= r))
+        out.append(win)
+    return out[0], out[1]
+
+
+def proj_best2_plain(
+    desc_a: torch.Tensor, attr_a: torch.Tensor,
+    desc_b: torch.Tensor, attr_b: torch.Tensor,
+    check_ur: bool = False,
+) -> Tuple[Best2, Best2]:
+    """Plain K2 over the gates of ``proj_gates``.  Returns
+    ((idx_n, best_n, second_n), (idx_w, best_w, second_w)), each (M,)
+    int32.  The lowest column wins a tie, a tied duplicate of the best
+    counts as second, the sentinels are 10000 and idx is -1 where no
+    column passes (the TPU kernel's rule)."""
+    d = distance_matrix(desc_a, desc_b)
+    out = []
+    for win in proj_gates(attr_a, attr_b, check_ur):
         dg = torch.where(win, d, INVALID_DIST)
         best, idx = torch.min(dg, dim=1)
         rest = dg.scatter(1, idx[:, None], INVALID_DIST)

@@ -78,6 +78,35 @@ def fast_score_nms_cuda(image: torch.Tensor, border: int) -> torch.Tensor:
     return out
 
 
+# K2 and K3 are small enough that the host's work per call sets their
+# wall time, so their wrappers check the four inputs in one pass and pass
+# the device index and the raw current stream to C, which sets the device
+# itself, instead of entering a device context and building a stream
+# object.
+
+
+def _check_best2(kernel: str, desc_a: torch.Tensor, attr_a: torch.Tensor,
+                 desc_b: torch.Tensor, attr_b: torch.Tensor,
+                 a_shape: Tuple, b_shape: Tuple) -> None:
+    """The inputs of K2 or K3: int32 descriptors and float32 attributes of
+    ``a_shape`` and ``b_shape``, contiguous, on one CUDA device, and
+    desc_a, attr_a and desc_b at 16-byte boundaries (each 32-byte row is
+    copied as two 16-byte pieces)."""
+    dev = desc_a.device
+    for t, name, dtype, shape in ((desc_a, "desc_a", torch.int32, a_shape),
+                                  (attr_a, "attr_a", torch.float32, a_shape),
+                                  (desc_b, "desc_b", torch.int32, b_shape),
+                                  (attr_b, "attr_b", torch.float32, b_shape)):
+        if t.dtype != dtype or t.shape != shape or t.device != dev or not t.is_contiguous():
+            _check(t, f"{kernel} {name}", dtype, shape)  # names what is wrong
+            raise ValueError(f"{kernel}: inputs on different devices")
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: expected CUDA tensors, got {dev}")
+    if desc_a.data_ptr() % 16 or attr_a.data_ptr() % 16 or desc_b.data_ptr() % 16:
+        raise ValueError(f"{kernel}: descriptors and a-side attributes must start at a "
+                         "16-byte boundary")
+
+
 def proj_best2_cuda(
     desc_a: torch.Tensor, attr_a: torch.Tensor,
     desc_b: torch.Tensor, attr_b: torch.Tensor,
@@ -86,28 +115,22 @@ def proj_best2_cuda(
     """K2 on the card; same contract and results as
     ``ops.hamming.proj_best2_plain``."""
     M, N = desc_a.shape[0], desc_b.shape[0]
-    _check(desc_a, "proj_best2 desc_a", torch.int32, (M, 8))
-    _check(attr_a, "proj_best2 attr_a", torch.float32, (M, 8))
-    _check(desc_b, "proj_best2 desc_b", torch.int32, (N, 8))
-    _check(attr_b, "proj_best2 attr_b", torch.float32, (N, 8))
-    dev = desc_a.device
-    if any(t.device != dev for t in (attr_a, desc_b, attr_b)):
-        raise ValueError("proj_best2: inputs on different devices")
+    _check_best2("proj_best2", desc_a, attr_a, desc_b, attr_b, (M, 8), (N, 8))
     if M >= 2**28 or N >= 2**28:
         raise ValueError(f"proj_best2: unsupported shape M={M}, N={N}")
+    dev = desc_a.device
     out = torch.empty((6, M), dtype=torch.int32, device=dev)
+    rows = out.unbind(0)
     if M == 0:
-        return (out[0], out[1], out[2]), (out[3], out[4], out[5])
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ydorb_proj_best2(
-            desc_a.data_ptr(), attr_a.data_ptr(), desc_b.data_ptr(),
-            attr_b.data_ptr(), M, N, int(bool(check_ur)), out.data_ptr(), stream,
-        )
-        _LAUNCHES["proj_best2"] += 1
+        return rows[:3], rows[3:]
+    err = _lib().ydorb_proj_best2(
+        desc_a.data_ptr(), attr_a.data_ptr(), desc_b.data_ptr(), attr_b.data_ptr(),
+        M, N, int(bool(check_ur)), out.data_ptr(), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    _LAUNCHES["proj_best2"] += 1
     _raise_on(err, "proj_best2")
-    return (out[0], out[1], out[2]), (out[3], out[4], out[5])
+    return rows[:3], rows[3:]
 
 
 def pair_best2_cuda(
@@ -123,29 +146,21 @@ def pair_best2_cuda(
     if mode not in PAIR_MODES:
         raise ValueError(f"pair_best2: mode must be one of {PAIR_MODES}, got {mode!r}")
     B, M, N = desc_a.shape[0], desc_a.shape[1], desc_b.shape[1]
-    _check(desc_a, "pair_best2 desc_a", torch.int32, (B, M, 8))
-    _check(attr_a, "pair_best2 attr_a", torch.float32, (B, M, 8))
-    _check(desc_b, "pair_best2 desc_b", torch.int32, (B, N, 8))
-    _check(attr_b, "pair_best2 attr_b", torch.float32, (B, N, 8))
-    dev = desc_a.device
-    if any(t.device != dev for t in (attr_a, desc_b, attr_b)):
-        raise ValueError("pair_best2: inputs on different devices")
+    _check_best2("pair_best2", desc_a, attr_a, desc_b, attr_b, (B, M, 8), (B, N, 8))
     if B >= 65536 or M >= 2**28 or N >= 2**28:
         raise ValueError(f"pair_best2: unsupported shape B={B}, M={M}, N={N}")
+    dev = desc_a.device
     out = torch.empty((3, B, M), dtype=torch.int32, device=dev)
     if B * M == 0:
-        return out[0], out[1], out[2]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ydorb_pair_best2(
-            desc_a.data_ptr(), attr_a.data_ptr(), desc_b.data_ptr(),
-            attr_b.data_ptr(), B, M, N, 1 if mode == "epi" else 0,
-            out.data_ptr(), stream,
-        )
-        _LAUNCHES["pair_best2"] += 1
+        return out.unbind(0)
+    err = _lib().ydorb_pair_best2(
+        desc_a.data_ptr(), attr_a.data_ptr(), desc_b.data_ptr(), attr_b.data_ptr(),
+        B, M, N, 1 if mode == "epi" else 0, out.data_ptr(), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    _LAUNCHES["pair_best2"] += 1
     _raise_on(err, "pair_best2")
-    return out[0], out[1], out[2]
+    return out.unbind(0)
 
 
 def lm_obs_cuda(inp: torch.Tensor):

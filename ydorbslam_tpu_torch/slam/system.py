@@ -140,8 +140,9 @@ class SystemRecord:
 
 
 class SlamSystem:
-    """End-to-end RGB-D SLAM on ``device``: tracking, and with mapping on
-    the synchronous local mapping after every keyframe."""
+    """End-to-end RGB-D SLAM on ``device`` (the card unless the caller
+    asks for another): tracking, and with mapping on the synchronous
+    local mapping after every keyframe."""
 
     def __init__(
         self,
@@ -149,7 +150,7 @@ class SlamSystem:
         sensor: Sensor = Sensor.RGBD,
         enable_mapping: bool = True,
         enable_loop_closing: bool = True,
-        device="cpu",
+        device="cuda",
     ):
         if enable_mapping and enable_loop_closing:
             raise NotImplementedError(

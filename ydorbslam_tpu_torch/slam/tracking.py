@@ -88,9 +88,10 @@ class Tracker:
     """Frame-to-frame RGB-D tracker: motion-model projection matching
     against the last frame's landmarks + pose-only LM, with the
     appearance-only fallback; local-map tracking and keyframe creation
-    plug in through the hooks.  All state lives on ``device``."""
+    plug in through the hooks.  All state lives on ``device``, the card
+    unless the caller asks for another."""
 
-    def __init__(self, cfg: SlamConfig, device="cpu"):
+    def __init__(self, cfg: SlamConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.cam = camera_intrinsics(cfg, self.device)
