@@ -9,9 +9,13 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc compiles ``ydorbslam_tpu_torch/csrc/*.cu`` for sm_90a,
      one process per source, all started together;
-  3. K1 (FAST-9 + NMS) against its plain PyTorch version on the 8
-     pyramid levels of ``bench.make_frames()`` frame 0 and on a random
-     480x640 image: bit-identical, with ms per frame (8 levels);
+  3. K1 (FAST-9 + NMS, all levels of a frame in one launch) against its
+     plain PyTorch version: one launch on the 8 pyramid levels of
+     ``bench.make_frames()`` frame 0, one on a random 480x640 image, one
+     on ragged levels (1x1, 7x33, 33x7, 20x90: H < 2 x border), one on
+     all 13 at once, and the ragged levels with frame 0's smallest at
+     borders 0, 1 and 3: bit-identical, with device and wall ms per
+     frame (8 levels) and the bound;
   4. K2 (gated Hamming best/second) against its plain version on the
      real frame 0 -> 1 search and on problems from ``proj_problem``
      (``ydorbslam_tpu_torch/testing.py``):
@@ -23,7 +27,7 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      call;
   5. the mapping-off path: ``SlamSystem(..., enable_mapping=False,
      device="cuda")`` tracks the first 60 frames; 0 lost frames,
-     ATE < 0.02 m, every K1 and K2 launch counted;
+     ATE < 0.02 m, K1 launched exactly once per frame, K2 counted;
   6. per-layer times (extraction, motion search, pose LM) inside a
      mapping-off tracking run of frames 0-39;
   7. parity: the first 20 frames again on the CPU (plain versions) with
@@ -32,9 +36,9 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      enable_loop_closing=False, device="cuda")`` tracks all 120 frames.
      It writes ``save_trajectory_tum`` to a temporary file and reads it
      back for the ATE.  Gates: 0 lost, ATE < 0.02 m and within 1.5x of the
-     JAX package's CPU figure, more than 2 keyframes, K1 launched 8x120
-     times, K2 at least twice per frame after the first, K3 3x and K4 17x
-     per local BA.  It prints frames/s and the median ms/frame after 20
+     JAX package's CPU figure, more than 2 keyframes, K1 launched exactly
+     once per frame, K2 at least twice per frame after the first, K3 3x
+     and K4 17x per local BA.  It prints frames/s and the median ms/frame after 20
      warm-up frames, the keyframes inserted and culled, the live map
      points and the synchronised ms per ``mapping_step``.  The last K2
      input of each search (motion, local map), the last K3 input of each
@@ -47,8 +51,11 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      gated pairs (the basis of the bound) and ms per call of the kernel
      and of the plain version;
  10. K4 (BA observation pass) against its plain version on a real local-BA
-     input captured in phase 8 and on a random one at C=96, P=4096, O=16:
-     within rtol 2e-4, atol 2e-3, with the errors and ms per call;
+     input captured in phase 8, on a random (32, 16, 4096) one from
+     ``lm_obs_problem`` and on ragged ones (O in 1, 5, 17 by P in 1, 31,
+     4097), both Huber settings: within rtol 2e-4, atol 2e-3, with the
+     errors and ms per call; two launches on the real input give the same
+     bits;
  11. parity with mapping on: the first 30 frames again on the CPU (the
      third keyframe and its local BA come at frame 26); the same lost
      pattern and keyframe insertions, and camera centres at track time
@@ -64,11 +71,11 @@ card's own work back to back.
 It prints one JSON line with every kernel's name, route, source, the
 TPU kernel it replaces, launches in the main path (phase 8), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
-levels) and that of the plain version, the bound on that input (the
-larger of its bytes over 3.35 TB/s and its operations over the H100's
-peak rate for them, see ``_bound``) and what binds it, and the time of
-one PyTorch call computing the same function (null: there is none);
-then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+levels, one launch) and that of the plain version, the bound on that
+input (the larger of its bytes over 3.35 TB/s and its operations over
+the H100's peak rate for them, see ``_bound``) and what binds it, and
+the time of one PyTorch call computing the same function (null: there
+is none); then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero without the last line.
 """
 import json
@@ -95,7 +102,14 @@ POPC_S = 16 * 132 * 1.98e9  # __popc: 16 per SM per clock (compute capability 9.
 # Lane operations per unit of work, counted from the kernels' formulas:
 # subtractions, absolute values, multiplies, adds, min/max, compares and
 # selects; the logic that combines predicates is not counted.
-K1_OPS_PX = 205  # 16 differences, 16 negations, two 9-arc min/max trees of 79, 2 to combine, 8 NMS and 4 border compares, 1 select
+# K1, as csrc/fast_nms.cu computes it: per scored pixel (the border
+# window grown by the NMS ring) 16 differences, two cyclic 9-arc
+# max-min of 57 (arc9) and 2 to combine; per output in the window 5 max
+# (the separable 3x3 over a thread's 6 rows), 1 compare and 1 select.
+K1_SCORE_OPS = 132
+K1_NMS_OPS = 7
+K1_OPS_PX_TREE = 205  # the earlier count, per pixel of every level: the plain version's 79-op trees
+K1_RAGGED = ((1, 1), (7, 33), (33, 7), (20, 90))
 K2_GATE_OPS = {False: 11, True: 16}  # per pair, by check_ur
 K3_GATE_OPS = {"proj": 18, "epi": 11}  # per pair, by mode
 DIST_OPS = 15  # per popcounted pair: 8 XOR and 7 adds, beside its 8 __popc
@@ -112,6 +126,21 @@ def _bound(nbytes, lane_ops, popc=0.0):
          "operations": max(lane_ops / LANE_OPS_S, popc / POPC_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+def _k1_work(levels, border):
+    """Scored pixels, window outputs and pixels of one K1 launch over
+    ``levels``, and its bound (ms, what binds): every pixel read and
+    written once, the operations of ``K1_SCORE_OPS`` and ``K1_NMS_OPS``."""
+    scored = window = px = 0
+    for lv in levels:
+        H, W = lv.shape
+        px += H * W
+        if H > 2 * border and W > 2 * border:
+            window += (H - 2 * border) * (W - 2 * border)
+            scored += ((min(H - border, H - 1) - max(border - 1, 0) + 1)
+                       * (min(W - border, W - 1) - max(border - 1, 0) + 1))
+    return scored, window, px, *_bound(px * 8, scored * K1_SCORE_OPS + window * K1_NMS_OPS)
 
 
 def _centres(poses):
@@ -237,7 +266,7 @@ def main() -> int:
     from ydorbslam_tpu_torch.optim import lm_kernel, schur
     from ydorbslam_tpu_torch.slam import matchers, system as system_mod, triangulate
     from ydorbslam_tpu_torch.testing import (
-        device_ms, on_device, pair_problem, proj_problem, wall_ms,
+        device_ms, lm_obs_problem, on_device, pair_problem, proj_problem, wall_ms,
     )
 
     dev = torch.device("cuda")
@@ -261,36 +290,49 @@ def main() -> int:
     gt_centres = _centres(oscillating_trajectory(len(frames)))
     report = {}
 
-    # 3. K1 against plain
+    # 3. K1 against plain: each set of levels in one launch, bit for bit.
     levels = build_pyramid(torch.as_tensor(frames[0][1]).to(dev).float())
-    rand = torch.as_tensor(
-        np.random.default_rng(0).uniform(0, 255, (480, 640)).astype(np.float32)
-    ).to(dev)
+    rng3 = np.random.default_rng(0)
+    rand = torch.as_tensor(rng3.uniform(0, 255, (480, 640)).astype(np.float32)).to(dev)
+    ragged = tuple(torch.as_tensor(rng3.uniform(0, 255, s).astype(np.float32)).to(dev)
+                   for s in K1_RAGGED)
     err = 0.0
-    for img in (*levels, rand):
-        k = kernels.fast_score_nms_cuda(img, DETECT_BORDER)
-        p = nms_and_border(fast_score_map(img), DETECT_BORDER)
-        torch.cuda.synchronize()
-        if not torch.equal(k, p):
-            raise AssertionError(f"K1 differs from plain at shape {tuple(img.shape)}")
-        err = max(err, float((k - p).abs().max()))
-    k1_ms = wall_ms(lambda: [kernels.fast_score_nms_cuda(l, DETECT_BORDER) for l in levels])
-    k1_plain = wall_ms(
-        lambda: [nms_and_border(fast_score_map(l), DETECT_BORDER) for l in levels]
-    )
-    k1_dev = device_ms(lambda: [kernels.fast_score_nms_cuda(l, DETECT_BORDER) for l in levels])
-    k1_plain_dev = device_ms(
-        lambda: [nms_and_border(fast_score_map(l), DETECT_BORDER) for l in levels]
-    )
-    # Bound per frame: each pixel of the 8 levels read once and written once.
-    px = sum(l.numel() for l in levels)
-    k1_bound, k1_by = _bound(px * 8, px * K1_OPS_PX)
+    for label, lvls, border in (
+        ("frame 0's 8 levels", levels, DETECT_BORDER), ("random 480x640", (rand,), DETECT_BORDER),
+        ("ragged", ragged, DETECT_BORDER), ("all 13", (*levels, rand, *ragged), DETECT_BORDER),
+        *((f"ragged, border {b}", (*ragged, levels[-1]), b) for b in (0, 1, 3)),
+    ):
+        before = kernels.launch_counts()["fast_score_nms"]
+        outs = kernels.fast_score_nms_levels_cuda(lvls, border)
+        if kernels.launch_counts()["fast_score_nms"] != before + 1:
+            raise AssertionError(f"K1 on {label}: not one launch")
+        for img, k in zip(lvls, outs):
+            p = nms_and_border(fast_score_map(img), border)
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(f"K1 differs from plain on {label} at shape {tuple(img.shape)}")
+            err = max(err, float((k - p).abs().max()))
+    if not torch.equal(kernels.fast_score_nms_cuda(rand, DETECT_BORDER),
+                       nms_and_border(fast_score_map(rand), DETECT_BORDER)):
+        raise AssertionError("K1's one-level call differs from plain")
+    k1_call = lambda: kernels.fast_score_nms_levels_cuda(levels, DETECT_BORDER)  # noqa: E731
+    k1_plain_call = lambda: [nms_and_border(fast_score_map(l), DETECT_BORDER)  # noqa: E731
+                             for l in levels]
+    k1_ms = wall_ms(k1_call)
+    k1_plain = wall_ms(k1_plain_call)
+    k1_dev = device_ms(k1_call)
+    k1_plain_dev = device_ms(k1_plain_call)
+    scored, window, px, k1_bound, k1_by = _k1_work(levels, DETECT_BORDER)
+    tree_bound, tree_by = _bound(px * 8, px * K1_OPS_PX_TREE)
     report["fast_score_nms"] = dict(max_abs_err=err, ms=k1_dev, plain_ms=k1_plain_dev,
                                     bound_ms=k1_bound, bound_by=k1_by)
-    print(f"phase 3 K1: bit-identical on 8 levels {[tuple(l.shape) for l in levels]} "
-          f"and random 480x640; per frame (8 levels, {px} px): kernel wall {k1_ms:.4f} ms, "
-          f"device {k1_dev:.4f} ms; plain wall {k1_plain:.4f} ms, device "
-          f"{k1_plain_dev:.4f} ms; bound {k1_bound:.5f} ms ({k1_by})", flush=True)
+    print(f"phase 3 K1: bit-identical, one launch each, on frame 0's 8 levels "
+          f"{[tuple(l.shape) for l in levels]}, random 480x640, ragged {list(K1_RAGGED)}, all "
+          f"13 at once, and ragged + {tuple(levels[-1].shape)} at borders 0, 1, 3; per frame "
+          f"(8 levels, {px} px, {scored} scored, {window} in the window, one launch): kernel "
+          f"wall {k1_ms:.4f} ms, device {k1_dev:.4f} ms; plain wall {k1_plain:.4f} ms, device "
+          f"{k1_plain_dev:.4f} ms; bound {k1_bound:.5f} ms ({k1_by}); the earlier count "
+          f"({K1_OPS_PX_TREE} ops per pixel) {tree_bound:.5f} ms ({tree_by}) | {smi}", flush=True)
 
     # 4. K2 against plain: the real frame 0 -> 1 motion search, then random.
     from ydorbslam_tpu_torch.ops.stereo import fill_depth_from_rgbd
@@ -348,7 +390,7 @@ def main() -> int:
         raise AssertionError("non-finite or malformed pose")
     if n_lost != 0 or not ate < 0.02:
         raise AssertionError(f"mapping-off path: lost {n_lost}, ATE {ate}")
-    if launches["fast_score_nms"] != 8 * N_OFF or launches["proj_best2"] < N_OFF - 1:
+    if launches["fast_score_nms"] != N_OFF or launches["proj_best2"] < N_OFF - 1:
         raise AssertionError(f"mapping-off path did not go through the kernels: {launches}")
     off_poses, off_lost = poses, lost
 
@@ -453,7 +495,7 @@ def main() -> int:
         raise AssertionError(f"main path: ATE {ate_map} (JAX on a CPU {JAX_CPU_ATE_MAPPING})")
     if stats["keyframes_inserted"] <= 2 or n_ba != len(step_ms) or n_ba < 1:
         raise AssertionError(f"main path: {stats['keyframes_inserted']} keyframes, {n_ba} BAs")
-    expect = dict(fast_score_nms=8 * len(frames), pair_best2=3 * n_ba, lm_obs=17 * n_ba)
+    expect = dict(fast_score_nms=len(frames), pair_best2=3 * n_ba, lm_obs=17 * n_ba)
     if any(launches[k] != v for k, v in expect.items()) or \
             launches["proj_best2"] < 2 * (len(frames) - 1):
         raise AssertionError(f"main path launches {launches}, expected {expect} and "
@@ -511,29 +553,16 @@ def main() -> int:
           f"identical on {[l for l, _, _ in k3_cases]} | "
           + " | ".join(lines), flush=True)
 
-    # 10. K4 against plain: the real local-BA input, then a random one.
+    # 10. K4 against plain: the real local-BA input, a random one at the
+    # same shape, ragged ones; then two launches on the real input.
     real_inp = captured["lm_obs"]
-    g = torch.Generator().manual_seed(4)
-    C, P, O = 96, 4096, 16
-    from ydorbslam_tpu_torch.geometry.se3 import se3_exp
-
-    Tc = se3_exp(torch.randn(C, 6, generator=g) * 0.1)[torch.randint(0, C, (O, P), generator=g)]
-    rnd = torch.zeros((lm_kernel.NIN, O, P))
-    rnd[0:9] = Tc[..., :3, :3].reshape(O, P, 9).permute(2, 0, 1)
-    rnd[9:12] = Tc[..., :3, 3].permute(2, 0, 1)
-    rnd[12] = torch.rand(P, generator=g) * 6 - 3
-    rnd[13] = torch.rand(P, generator=g) * 4 - 2
-    rnd[14] = torch.rand(P, generator=g) * 6 + 3
-    rnd[15] = torch.rand((O, P), generator=g) * 640
-    rnd[16] = torch.rand((O, P), generator=g) * 480
-    rnd[17] = rnd[15] - 50.0 / rnd[14]
-    rnd[18] = 1.0 / 1.44 ** torch.randint(0, 8, (O, P), generator=g).float()
-    rnd[19] = (torch.rand((O, P), generator=g) < 0.7).float()
-    rnd[20] = (torch.rand((O, P), generator=g) < 0.8).float()
-    rnd[21] = 1.0
-    rnd[22:27] = torch.tensor([500.0, 500.0, 320.0, 240.0, 50.0])[:, None, None]
-    errs = []
-    for label, inp in (("real", real_inp), ("random 96x4096x16", rnd.to(dev))):
+    rnd = torch.as_tensor(lm_obs_problem(np.random.default_rng(4), 16, 4096)).to(dev)
+    cases = [("real", real_inp), ("random (32, 16, 4096)", rnd)]
+    rng10 = np.random.default_rng(6)
+    cases += [(f"O={O} P={P}", torch.as_tensor(lm_obs_problem(rng10, O, P)).to(dev))
+              for O in (1, 5, 17) for P in (1, 31, 4097)]
+    errs = {}
+    for label, inp in cases:
         for hub in (1.0, 0.0):
             x = inp.clone()
             x[21] = hub
@@ -541,32 +570,37 @@ def main() -> int:
             pq, pp = lm_kernel.lm_obs_plain(x)
             torch.cuda.synchronize()
             for a, b in ((kq, pq), (kp, pp)):
-                if not torch.isfinite(b).all():
-                    raise AssertionError(f"K4 plain version not finite on {label}")
+                if a.shape != b.shape or not torch.isfinite(b).all():
+                    raise AssertionError(f"K4 plain version malformed or not finite on {label}")
                 bad = (a - b).abs() > K4_ATOL + K4_RTOL * b.abs()
                 if bad.any():
                     raise AssertionError(f"K4 differs from plain on {label}, huber={hub}: "
                                          f"{int(bad.sum())} entries")
-                errs.append(float((a - b).abs().max()))
+                errs[label] = max(errs.get(label, 0.0), float((a - b).abs().max()))
+    (q1, p1), (q2, p2) = kernels.lm_obs_cuda(real_inp), kernels.lm_obs_cuda(real_inp)
+    torch.cuda.synchronize()
+    if not (torch.equal(q1, q2) and torch.equal(p1, p2)):
+        raise AssertionError("K4: two launches on the real input differ")
     k4_ms = wall_ms(lambda: kernels.lm_obs_cuda(real_inp))
     k4_plain = wall_ms(lambda: lm_kernel.lm_obs_plain(real_inp), calls=5, reps=5)
-    k4_rnd = rnd.to(dev)
-    k4_rnd_ms = wall_ms(lambda: kernels.lm_obs_cuda(k4_rnd))
-    k4_rnd_plain = wall_ms(lambda: lm_kernel.lm_obs_plain(k4_rnd), calls=5, reps=5)
+    k4_rnd_ms = wall_ms(lambda: kernels.lm_obs_cuda(rnd))
+    k4_rnd_plain = wall_ms(lambda: lm_kernel.lm_obs_plain(rnd), calls=5, reps=5)
     k4_dev = device_ms(lambda: kernels.lm_obs_cuda(real_inp))
+    k4_rnd_dev = device_ms(lambda: kernels.lm_obs_cuda(rnd))
     k4_plain_dev = device_ms(lambda: lm_kernel.lm_obs_plain(real_inp), calls=5, reps=5)
     # Bound: the rows the pass reads, every output written once.
     _, O4, P4 = real_inp.shape
     k4_bound, k4_by = _bound(((K4_ROWS_READ + lm_kernel.NOUT_Q) * O4 * P4
                               + lm_kernel.NOUT_P * P4) * 4, O4 * P4 * K4_OPS_OBS)
-    report["lm_obs"].update(max_abs_err=max(errs), ms=k4_dev, plain_ms=k4_plain_dev,
+    report["lm_obs"].update(max_abs_err=max(errs.values()), ms=k4_dev, plain_ms=k4_plain_dev,
                             bound_ms=k4_bound, bound_by=k4_by)
     print(f"phase 10 K4: within rtol {K4_RTOL}, atol {K4_ATOL} on real "
-          f"{tuple(real_inp.shape)} and random {C}x{P}x{O}, both Huber settings; max abs "
-          f"errors {['%.3e' % e for e in errs]}; ms per call kernel / plain: real wall "
+          f"{tuple(real_inp.shape)}, random and ragged inputs, both Huber settings; max abs "
+          f"error per input {({k: float('%.3e' % v) for k, v in errs.items()})}; two launches on "
+          f"the real input bitwise equal; ms per call kernel / plain: real wall "
           f"{k4_ms:.4f} / {k4_plain:.4f}, device {k4_dev:.4f} / {k4_plain_dev:.4f}; random "
-          f"wall {k4_rnd_ms:.4f} / {k4_rnd_plain:.4f}; bound on the real input "
-          f"{k4_bound:.5f} ms ({k4_by})", flush=True)
+          f"wall {k4_rnd_ms:.4f} / {k4_rnd_plain:.4f}, device {k4_rnd_dev:.4f}; bound on the "
+          f"real input {k4_bound:.5f} ms ({k4_by}) | {smi}", flush=True)
 
     # 11. parity against the CPU, mapping on
     cpu_sys, _, poses_cpu, lost_cpu, kfs_cpu = _run(frames[:N_PAR_MAP], "cpu", mapping=True)

@@ -114,7 +114,8 @@ def main() -> int:
     print(f"profiled frames {PROFILED.start}-{PROFILED.stop - 1}: device {device_ms:.3f} "
           f"ms/frame, busy share vs p50 {device_ms / p50:.4f}, "
           f"{launches:.0f} kernel launches/frame")
-    for name in ("fast_nms_kernel", "proj_best2_kernel", "pair_best2_kernel", "lm_obs_kernel"):
+    for name in ("fast_nms_levels_kernel", "proj_best2_kernel", "pair_best2_kernel",
+                 "lm_obs_kernel"):
         hits = [e for e in ka if name in e.key]
         count = sum(e.count for e in hits)
         total = sum(e.self_device_time_total for e in hits)

@@ -119,12 +119,12 @@ def load() -> ctypes.CDLL:
     points.  Every entry point returns ``cudaGetLastError()``."""
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ydorb_fast_score_nms.argtypes = [p, p, i, i, i, p]
+    lib.ydorb_fast_score_nms.argtypes = [ctypes.POINTER(ctypes.c_longlong), i, i, i, p]
     lib.ydorb_fast_score_nms.restype = i
     lib.ydorb_proj_best2.argtypes = [p, p, p, p, i, i, i, p, i, p]
     lib.ydorb_proj_best2.restype = i
     lib.ydorb_pair_best2.argtypes = [p, p, p, p, i, i, i, i, p, i, p]
     lib.ydorb_pair_best2.restype = i
-    lib.ydorb_lm_obs.argtypes = [p, i, i, p, p, p]
+    lib.ydorb_lm_obs.argtypes = [p, i, i, p, p, i, p]
     lib.ydorb_lm_obs.restype = i
     return lib

@@ -29,6 +29,8 @@
 
 #include <atomic>
 
+#include "device_guard.cuh"
+
 namespace best2 {
 
 constexpr int kInvalid = 10000;  // sentinel distance, above any of 256 bits
@@ -218,22 +220,6 @@ constexpr int smem_bytes() {
   return (states_offset<A>() +
           kWarps * kMaxRowsPerWarp * S * static_cast<int>(sizeof(State) / 4)) * 4;
 }
-
-// Makes ``device`` current for the guard's life, as the wrapper's
-// tensors and stream are on it.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int device) : device_(device) {
-    cudaGetDevice(&prev_);
-    if (prev_ != device_) cudaSetDevice(device_);
-  }
-  ~DeviceGuard() {
-    if (prev_ != device_) cudaSetDevice(prev_);
-  }
-
- private:
-  int device_, prev_ = 0;
-};
 
 constexpr int kMaxDevices = 64;
 

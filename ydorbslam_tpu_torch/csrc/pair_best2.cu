@@ -295,7 +295,7 @@ extern "C" int ydorb_pair_best2(const void* desc_a, const float* attr_a,
                                 const void* desc_b, const float* attr_b,
                                 int B, int M, int N, int mode, int* out, int device,
                                 cudaStream_t stream) {
-  const best2::DeviceGuard guard(device);
+  const ydorb::DeviceGuard guard(device);
   const uint32_t* da = static_cast<const uint32_t*>(desc_a);
   const uint32_t* db = static_cast<const uint32_t*>(desc_b);
   const cudaError_t err = mode == kEpi

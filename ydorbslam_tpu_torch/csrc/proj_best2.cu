@@ -240,7 +240,7 @@ extern "C" int ydorb_proj_best2(const void* desc_a, const float* attr_a,
                                 const void* desc_b, const float* attr_b,
                                 int M, int N, int check_ur, int* out, int device,
                                 cudaStream_t stream) {
-  const best2::DeviceGuard guard(device);
+  const ydorb::DeviceGuard guard(device);
   return static_cast<int>(launch(static_cast<const uint32_t*>(desc_a), attr_a,
                                  static_cast<const uint32_t*>(desc_b), attr_b, M, N, check_ur,
                                  out, stream));

@@ -2,6 +2,7 @@ from .pyramid import build_pyramid, pyramid_shapes, scale_factors, level_sigma2 
 from .fast import (  # noqa: F401
     fast_score_map,
     fast_score_nms,
+    fast_score_nms_levels,
     fast_subpixel_offsets,
     nms_and_border,
     two_threshold_mask,

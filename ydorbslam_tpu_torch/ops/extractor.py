@@ -8,8 +8,8 @@ with a validity mask, exactly as in the JAX package, so every stage
 downstream sees static shapes.
 
 K1 runs on whatever device the image is on: a CUDA image launches the
-CUDA kernel at every level, a CPU image takes the plain version
-(``ops.fast.fast_score_nms``).
+CUDA kernel once for all levels, a CPU image takes the plain version
+level by level (``ops.fast.fast_score_nms_levels``).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from .descriptors import (
     extract_patches,
     orientation_from_patches,
 )
-from .fast import fast_score_nms, fast_subpixel_offsets, two_threshold_mask
+from .fast import fast_score_nms_levels, fast_subpixel_offsets, two_threshold_mask
 from .pyramid import build_pyramid, scale_factors
 from .select import level_budgets, select_topk_cells
 
@@ -75,14 +75,14 @@ def extract_orb(
     budgets = level_budgets(n_features, n_levels, scale_factor)
     scales = scale_factors(n_levels, scale_factor)
 
+    live = [level for level in range(n_levels) if budgets[level] > 0]
+    scores = fast_score_nms_levels([pyr[level] for level in live], DETECT_BORDER)
+
     uvs, patches_l = [], []
     resps, octs, valids = [], [], []
-    for level in range(n_levels):
+    for level, score in zip(live, scores):
         lvl = pyr[level]
         k = budgets[level]
-        if k == 0:
-            continue
-        score = fast_score_nms(lvl, DETECT_BORDER)
         score = two_threshold_mask(score, 32, float(th_high), float(th_low))
         uv_l, resp, valid = select_topk_cells(score, k)
 

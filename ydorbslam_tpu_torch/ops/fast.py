@@ -10,13 +10,15 @@ pyramid level:
 which is the largest threshold at which the segment test still passes.
 3x3 non-maximum suppression keeps a pixel's score when it is >= all 8
 neighbours (ties survive); pixels outside ``[border, dim - border)`` are
-zeroed.  ``fast_score_nms`` runs score + NMS + border in one step: on a
-CUDA tensor it launches the hand-written kernel
-(``csrc/fast_nms.cu``), on a CPU tensor it takes the plain version
-below.  Every step is a subtraction, min or max, so both agree bit for
-bit.
+zeroed.  ``fast_score_nms_levels`` runs score + NMS + border for every
+level of a pyramid: on CUDA tensors it launches the hand-written kernel
+(``csrc/fast_nms.cu``) once for all levels, on CPU tensors it takes the
+plain version below.  Every step is a subtraction, min or max, so both
+agree bit for bit.
 """
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,18 +82,28 @@ def nms_and_border(score: torch.Tensor, border: int) -> torch.Tensor:
     return torch.where(is_peak & in_bounds, score, torch.zeros_like(score))
 
 
+def fast_score_nms_levels(
+    levels: Sequence[torch.Tensor], border: int
+) -> Tuple[torch.Tensor, ...]:
+    """K1: ``nms_and_border(fast_score_map(level), border)`` for every
+    level of a pyramid.
+
+    CUDA tensors launch the CUDA kernel once for all levels (or raise);
+    CPU tensors take the plain version level by level."""
+    levels = tuple(levels)
+    if any(t.is_cuda for t in levels):
+        from .kernels import fast_score_nms_levels_cuda
+
+        return fast_score_nms_levels_cuda(levels, border)
+    for t in levels:
+        if t.device.type != "cpu":
+            raise ValueError(f"fast_score_nms: unsupported device {t.device}")
+    return tuple(nms_and_border(fast_score_map(t), border) for t in levels)
+
+
 def fast_score_nms(image: torch.Tensor, border: int) -> torch.Tensor:
-    """K1: ``nms_and_border(fast_score_map(image), border)`` in one step.
-
-    A CUDA tensor launches the CUDA kernel (or raises); a CPU tensor
-    takes the plain version."""
-    if image.is_cuda:
-        from .kernels import fast_score_nms_cuda
-
-        return fast_score_nms_cuda(image, border)
-    if image.device.type != "cpu":
-        raise ValueError(f"fast_score_nms: unsupported device {image.device}")
-    return nms_and_border(fast_score_map(image), border)
+    """K1 for one image: the one-level call of ``fast_score_nms_levels``."""
+    return fast_score_nms_levels((image,), border)[0]
 
 
 def two_threshold_mask(

@@ -13,8 +13,9 @@ launches.  The plain versions (``ops.fast``, ``ops.hamming``,
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -40,8 +41,6 @@ def _lib():
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if len(t.shape) != len(shape) or any(
@@ -50,6 +49,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple) -> None
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -57,32 +58,66 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
 
 
-def fast_score_nms_cuda(image: torch.Tensor, border: int) -> torch.Tensor:
-    """K1 on the card: (H, W) float32 -> (H, W) float32 suppressed FAST
-    scores, bit-identical to ``nms_and_border(fast_score_map(image))``."""
-    _check(image, "fast_score_nms", torch.float32, (None, None))
-    H, W = image.shape
-    if H * W >= 2**31 or border < 0:
-        raise ValueError(f"fast_score_nms: unsupported shape {H}x{W} / border {border}")
-    out = torch.empty_like(image)
-    if H * W == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.ydorb_fast_score_nms(
-            image.data_ptr(), out.data_ptr(), H, W, int(border), stream
-        )
-        _LAUNCHES["fast_score_nms"] += 1
+# K1: the number of levels one launch takes (the size of the kernel's
+# level table, csrc/fast_nms.cu).
+MAX_LEVELS = 16
+
+
+def fast_score_nms_levels_cuda(levels: Sequence[torch.Tensor], border: int):
+    """K1 on the card, all levels in one launch: a sequence of contiguous
+    (H_l, W_l) float32 tensors on one CUDA device -> a tuple of (H_l, W_l)
+    suppressed FAST scores, each bit-identical to
+    ``nms_and_border(fast_score_map(level), border)``.  The outputs are
+    contiguous views of one allocation."""
+    levels = tuple(levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"fast_score_nms: 1 to {MAX_LEVELS} levels per launch, "
+                         f"got {len(levels)}")
+    dev = getattr(levels[0], "device", None)
+    for i, t in enumerate(levels):
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"fast_score_nms: level {i} is not a tensor")
+        if t.dtype != torch.float32 or t.dim() != 2:
+            raise ValueError(f"fast_score_nms: level {i} must be 2-D float32, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"fast_score_nms: level {i} is not contiguous")
+        if t.device != dev:
+            raise ValueError(f"fast_score_nms: levels on different devices ({dev}, {t.device})")
+    if dev.type != "cuda":
+        raise ValueError(f"fast_score_nms: expected CUDA tensors, got {dev}")
+    offsets = [0]
+    for t in levels:
+        offsets.append(offsets[-1] + t.numel())
+    if offsets[-1] >= 2**31 or border < 0:
+        raise ValueError(f"fast_score_nms: unsupported size {offsets[-1]} px / border {border}")
+    out = torch.empty(offsets[-1], dtype=torch.float32, device=dev)
+    # as_strided: a fraction of the host time of split + view.
+    outs = tuple(out.as_strided(t.shape, (t.shape[1], 1), o) for t, o in zip(levels, offsets))
+    table = [v for t, o in zip(levels, outs) if t.numel()
+             for v in (t.data_ptr(), o.data_ptr(), *t.shape)]
+    if not table:
+        return outs
+    err = _lib().ydorb_fast_score_nms(
+        (ctypes.c_longlong * len(table))(*table), len(table) // 4, int(border), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    _LAUNCHES["fast_score_nms"] += 1
     _raise_on(err, "fast_score_nms")
-    return out
+    return outs
 
 
-# K2 and K3 are small enough that the host's work per call sets their
-# wall time, so their wrappers check the four inputs in one pass and pass
-# the device index and the raw current stream to C, which sets the device
-# itself, instead of entering a device context and building a stream
-# object.
+def fast_score_nms_cuda(image: torch.Tensor, border: int) -> torch.Tensor:
+    """K1 on the card for one (H, W) float32 image: the one-level call of
+    ``fast_score_nms_levels_cuda``."""
+    return fast_score_nms_levels_cuda((image,), border)[0]
+
+
+# The host's work per call is a large part of the kernels' wall time, so
+# every wrapper checks its inputs in one pass and passes the device index
+# and the raw current stream to C, which sets the device itself
+# (csrc/device_guard.cuh), instead of entering a device context and
+# building a stream object.
 
 
 def _check_best2(kernel: str, desc_a: torch.Tensor, attr_a: torch.Tensor,
@@ -178,12 +213,10 @@ def lm_obs_cuda(inp: torch.Tensor):
     outp = torch.empty((NOUT_P, P), dtype=torch.float32, device=dev)
     if O * P == 0:
         return outq, outp.zero_()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ydorb_lm_obs(
-            inp.data_ptr(), O, P, outq.data_ptr(), outp.data_ptr(), stream
-        )
-        _LAUNCHES["lm_obs"] += 1
+    err = _lib().ydorb_lm_obs(
+        inp.data_ptr(), O, P, outq.data_ptr(), outp.data_ptr(), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    _LAUNCHES["lm_obs"] += 1
     _raise_on(err, "lm_obs")
     return outq, outp

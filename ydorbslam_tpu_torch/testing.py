@@ -1,15 +1,16 @@
-"""Problem generators and CUDA timers shared by the checks of K2 and K3.
+"""Problem generators and CUDA timers shared by the checks of the kernels.
 
 ``proj_problem`` and ``pair_problem`` make seeded K2 and K3 inputs as
 numpy arrays (random, tie-heavy, none or exactly one column passing),
 which ``tests/test_torch_best2_merge.py`` feeds to the plain versions on
-the CPU and ``chip_smoke.py`` and ``tools/time_best2.py`` to the kernels
-on the card.  ``wall_ms`` and ``device_ms`` time a call on the card with
+the CPU and ``chip_smoke.py`` and ``tools/time_kernels.py`` to the
+kernels on the card; ``lm_obs_problem`` makes a seeded K4 input for the
+last two.  ``wall_ms`` and ``device_ms`` time a call on the card with
 and without the host's dispatch.
 
 This module imports only numpy and torch, nothing else of the package,
-so ``tools/time_best2.py`` can load it by path beside another checkout's
-package.
+so ``tools/time_kernels.py`` can load it by path beside another
+checkout's package.
 """
 from __future__ import annotations
 
@@ -128,6 +129,38 @@ def pair_problem(rng, B, M, N, mode, kind="random"):
         ab = np.stack([ub, vb, zb + 1, b_oct, b_valid, zb, zb, zb], -1)
     return da.view(np.int32), aa.astype(np.float32), db.view(np.int32), \
         ab.astype(np.float32)
+
+
+def lm_obs_problem(rng, O, P, C=96):
+    """A K4 input as a (32, O, P) float32 numpy array with the rows I_* of
+    ``optim/lm_kernel.py``: O observations of each of P points from C
+    random poses (rotations of up to ~0.17 rad, translations of ~0.1),
+    points 3-9 m ahead, observed pixels anywhere in a 640x480 image (so
+    many residuals are large and Huber is active), right-x from a 50
+    px*m baseline, 8 scale levels, 70 % stereo, 80 % valid, Huber on,
+    the fr1-desk-like camera of ``bench.make_system``."""
+    w = rng.normal(0, 0.1, (C, 3))
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    k = np.zeros((C, 3, 3))
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    k = (k - k.transpose(0, 2, 1)) / th
+    rot = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k  # Rodrigues
+    cam = rng.integers(0, C, (O, P))
+    inp = np.zeros((32, O, P), np.float32)
+    inp[0:9] = rot[cam].reshape(O, P, 9).transpose(2, 0, 1)
+    inp[9:12] = rng.normal(0, 0.1, (C, 3))[cam].transpose(2, 0, 1)
+    inp[12] = rng.uniform(-3, 3, P)
+    inp[13] = rng.uniform(-2, 2, P)
+    inp[14] = rng.uniform(3, 9, P)
+    inp[15] = rng.uniform(0, 640, (O, P))
+    inp[16] = rng.uniform(0, 480, (O, P))
+    inp[17] = inp[15] - 50.0 / inp[14]
+    inp[18] = 1.0 / 1.44 ** rng.integers(0, 8, (O, P))
+    inp[19] = rng.random((O, P)) < 0.7
+    inp[20] = rng.random((O, P)) < 0.8
+    inp[21] = 1.0
+    inp[22:27] = np.array([500.0, 500.0, 320.0, 240.0, 50.0])[:, None, None]
+    return inp
 
 
 def on_device(dev, arrays):
