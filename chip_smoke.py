@@ -59,7 +59,27 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
  11. parity with mapping on: the first 30 frames again on the CPU (the
      third keyframe and its local BA come at frame 26); the same lost
      pattern and keyframe insertions, and camera centres at track time
-     within 1e-3 m.
+     within 1e-3 m;
+ 12. recovery on phase 8's card system (21 keyframes): a blank frame
+     (uint8 gray and uint16 depth of zeros) must be lost, then frames
+     40-59, 200 s later, must relocalize at the first of them and track
+     the rest within 0.02 m of ground truth.  Each ``_relocalize`` call is
+     timed between synchronisations, split into retrieval, appearance
+     match (K2), RANSAC, pose LM and the widening search (K2), with its
+     K2 launches.  The accepted relocalization runs again on a CPU
+     ``SlamSystem`` from copies of the same map, index, frame features
+     and generator state: the same candidates and accepted keyframe,
+     inliers within 2, pose within 1e-4 m and 1e-4 rad.  Then
+     ``activate_localization_mode()`` and frames 60-105: 0 lost, no
+     keyframe or map point added, no K3 or K4 launch, no visual
+     odometry, within 0.02 m of ground truth; it prints the median
+     ms/frame and frames/s.  With 3 % of ``mp_valid`` kept (a seeded
+     mask) frames 106-115 must track (>= 9) by visual odometry, and with
+     the mask removed frames 116-119 drop the flag.  Last it prints what
+     a (256, 4, 4) ``eigh``, a (256, 12, 12) and a (256, 3, 3) ``svd``, a
+     retrieval ``add_keyframe`` and ``remove_keyframes`` cost per call
+     (the last two also in device time from torch.profiler).
+     Each path's launch counts are set to 0 just before it.
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -116,6 +136,15 @@ DIST_OPS = 15  # per popcounted pair: 8 XOR and 7 adds, beside its 8 __popc
 UPDATE_OPS = 5  # per gated (pair, radius): compare, min, 3 selects
 K4_OPS_OBS = 725  # per observation: projection, residuals, Huber weight, Jacobians, 72 weighted 3-term row sums, 13 accumulations
 K4_ROWS_READ = 27  # input rows of the 32 that the observation pass reads
+# Phase 12: the frames of each recovery path, replayed T_SHIFT s later.
+KIDNAP_REPLAY = range(40, 60)
+LOC_FRAMES = range(60, 106)
+VO_FRAMES = range(106, 116)
+BACK_FRAMES = range(116, 120)
+T_SHIFT = 200.0
+VO_KEEP = 0.03  # share of the map points kept for the VO fallback
+GT_TOL = 0.02  # m, camera centres against ground truth
+RELOC_TOL_M, RELOC_TOL_RAD = 1e-4, 1e-4  # card against CPU relocalization
 
 
 def _bound(nbytes, lane_ops, popc=0.0):
@@ -244,6 +273,266 @@ def _k3_work(prob, mode):
     return B * M * N, gated, *_bound(B * (M + N) * 64 + 3 * B * M * 4, ops, gated * 8)
 
 
+def _profiled_ms(fn, calls=10):
+    """Device ms per call of fn(): the kernels' own times summed by
+    torch.profiler over ``calls`` calls.  For calls whose host dispatch
+    outlasts their device work, where ``device_ms``'s spin cannot cover
+    the enqueue and the card idles between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / calls
+
+
+def _rot_angle(Ra, Rb):
+    """Angle in radians of the rotation between two rotation matrices."""
+    import numpy as np
+
+    c = (np.trace(np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def _phase12(system, frames, gt_poses, smi):
+    """Phase 12 on the main path's card system (its map, index and
+    tracker after phase 8): kidnap and relocalization, the same
+    relocalization on the CPU, localization-only mode, the VO fallback,
+    and the cost of the linear algebra and of the index update.  Camera
+    centres are held against the ground truth in the map's frame (frame
+    0's camera, where tracking starts).  Each path's launch counts start
+    at 0 just before it and are read just after; any gate that fails
+    raises."""
+    import numpy as np
+    import torch
+
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.ops.extractor import FrameFeatures
+    from ydorbslam_tpu_torch.slam import retrieval, system as system_mod
+    from ydorbslam_tpu_torch.slam.map_state import MapState
+    from ydorbslam_tpu_torch.slam.mapping import SNAP_CULL_CAP
+    from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
+    from ydorbslam_tpu_torch.slam.tracking import TrackingState
+    from ydorbslam_tpu_torch.testing import wall_ms
+
+    dev = system.device
+    h, w = frames[0][1].shape
+    T0 = gt_poses[0]
+    gt_map = _centres(gt_poses) @ T0[:3, :3].T + T0[:3, 3]
+    calls = []  # one dict per _relocalize call on the card
+    timing = {"on": False}
+    last_ids = []
+
+    parts = {"bow_histogram": "retrieval", "detect_candidates": "retrieval",
+             "match_dense": "match", "ransac_pose_3d3d": "ransac", "ransac_pnp": "ransac",
+             "optimize_pose": "lm", "match_local_points": "widen"}
+    saved = {name: getattr(system_mod, name) for name in parts}
+
+    def part(name):
+        """system.py's ``name``, timed between synchronisations while a card
+        relocalization runs; detect_candidates also keeps its candidates."""
+        fn, key = saved[name], parts[name]
+
+        def wrapper(*args, **kwargs):
+            if not timing["on"]:
+                out = fn(*args, **kwargs)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                calls[-1][key] = calls[-1].get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            if name == "detect_candidates":
+                last_ids[:] = [int(i) for i in out[0].cpu().numpy() if i >= 0]
+            return out
+        return wrapper
+
+    reloc = system.tracker.reloc_hook
+    inputs = []
+
+    def hook(tracker, timestamp, feats):
+        """The card's _relocalize, synchronised and timed, with a CPU copy
+        of everything it reads kept for the CPU comparison."""
+        inputs.append(dict(
+            t=timestamp, feats=FrameFeatures(*(x.cpu() for x in feats)),
+            map=MapState(*(x.cpu() for x in system.map)),
+            retrieval=retrieval.RetrievalIndex(*(x.cpu() for x in system.retrieval)),
+            gen=system._reloc_gen.get_state(), n_kf=system.n_keyframes,
+        ))
+        k2 = kernels.launch_counts()["proj_best2"]
+        calls.append({})
+        torch.cuda.synchronize()
+        timing["on"] = True
+        t0 = time.perf_counter()
+        try:
+            ok = reloc(tracker, timestamp, feats)
+            torch.cuda.synchronize()
+        finally:
+            timing["on"] = False
+        calls[-1].update(
+            total=(time.perf_counter() - t0) * 1e3, ok=ok, cands=list(last_ids),
+            k2=kernels.launch_counts()["proj_best2"] - k2, accepted=system.ref_kf if ok else -1,
+            n_in=tracker.n_inliers, T=tracker.T_cw.cpu().numpy(),
+        )
+        return ok
+
+    def centre_err(i):
+        return float(np.linalg.norm(_centres([system.tracker.T_cw.cpu().numpy()])[0]
+                                    - gt_map[i]))
+
+    try:
+        for name in parts:
+            setattr(system_mod, name, part(name))
+        system.tracker.reloc_hook = hook
+
+        # Kidnap: a blank frame, then frames 40-59 again, 200 s later.
+        n_kf = system.n_keyframes
+        kernels.reset_launch_counts()
+        ok_blank = system.track_rgbd(frames[-1][0] + 1.0 / 30.0, np.zeros((h, w), np.uint8),
+                                     np.zeros((h, w), np.uint16))
+        state_blank = system.tracking_state()
+        ok_rep, err_rep = [], []
+        for i in KIDNAP_REPLAY:
+            t, gray, depth = frames[i]
+            ok_rep.append(system.track_rgbd(t + T_SHIFT, gray, depth))
+            err_rep.append(centre_err(i))
+        kid_launches = kernels.launch_counts()
+
+        # The accepted relocalization again on the CPU, from the same map,
+        # index, frame features and generator state.
+        j = next((k for k, c in enumerate(calls) if c["ok"]), None)
+        if j is not None:
+            inp = inputs[j]
+            cpu = SlamSystem(_config(), Sensor.RGBD, enable_mapping=True,
+                             enable_loop_closing=False, device="cpu")
+            cpu.map, cpu.retrieval, cpu.n_keyframes = inp["map"], inp["retrieval"], inp["n_kf"]
+            cpu._reloc_gen.set_state(inp["gen"])
+            ok_cpu = cpu._relocalize(cpu.tracker, inp["t"], inp["feats"])
+            cpu_cands = list(last_ids)
+    finally:
+        for name, fn in saved.items():
+            setattr(system_mod, name, fn)
+        system.tracker.reloc_hook = reloc
+
+    first = next((k for k, ok in enumerate(ok_rep) if ok), None)
+    split = " | ".join(
+        f"call {k}: {c['total']:.3f} ms (retrieval {c.get('retrieval', 0.0):.3f}, match "
+        f"{c.get('match', 0.0):.3f}, RANSAC {c.get('ransac', 0.0):.3f}, LM {c.get('lm', 0.0):.3f}, "
+        f"widening {c.get('widen', 0.0):.3f}), K2 launches {c['k2']}, candidates {c['cands']}, "
+        f"accepted {c['accepted']}, inliers {c['n_in']}" for k, c in enumerate(calls))
+    tracked = [e for ok, e in zip(ok_rep, err_rep) if ok]
+    print(f"phase 12 kidnap: blank frame {'lost' if not ok_blank else 'TRACKED'}, state "
+          f"{state_blank.name} with {n_kf} keyframes; replayed frames "
+          f"{KIDNAP_REPLAY[0]}-{KIDNAP_REPLAY[-1]} (+{T_SHIFT:.0f} s): relocalized at frame "
+          f"{KIDNAP_REPLAY[first] if first is not None else None}, tracked {sum(ok_rep)} of "
+          f"{len(ok_rep)}, max centre error {max(tracked, default=float('nan')):.6f} m; reloc "
+          f"attempts {system.stats.reloc_attempts} successes {system.stats.reloc_successes}; "
+          f"launches {kid_launches}; synchronised _relocalize: {split} | {smi}", flush=True)
+    if ok_blank or state_blank != TrackingState.LOST or system.n_keyframes < n_kf:
+        raise AssertionError("kidnap: the blank frame was not lost, or the system reset")
+    if system.stats.reloc_successes < 1 or first is None or j is None:
+        raise AssertionError("kidnap: no replayed frame relocalized")
+    if first != 0:
+        raise AssertionError(f"kidnap: relocalized only at frame {KIDNAP_REPLAY[first]}, "
+                             f"not at the first replayed frame {KIDNAP_REPLAY[0]}")
+    if not all(ok_rep[first:]) or not max(tracked) < GT_TOL:
+        raise AssertionError(f"kidnap: replay tracked {ok_rep}, centre errors {err_rep}")
+    if kid_launches["fast_score_nms"] != 1 + len(KIDNAP_REPLAY) or calls[j]["k2"] < 1:
+        raise AssertionError(f"kidnap: launches {kid_launches}, K2 in relocalization "
+                             f"{calls[j]['k2']}")
+
+    card = calls[j]
+    d_c = float(np.linalg.norm(_centres([card["T"]])[0]
+                               - _centres([cpu.tracker.T_cw.numpy()])[0]))
+    d_r = _rot_angle(card["T"][:3, :3], cpu.tracker.T_cw.numpy()[:3, :3])
+    print(f"phase 12 card against CPU on relocalization call {j}: candidates card "
+          f"{card['cands']} CPU {cpu_cands}; accepted card {card['accepted']} CPU "
+          f"{cpu.ref_kf if ok_cpu else -1}; inliers card {card['n_in']} CPU "
+          f"{cpu.tracker.n_inliers}; camera-centre difference {d_c:.3e} m, rotation "
+          f"difference {d_r:.3e} rad", flush=True)
+    if card["cands"] != cpu_cands or not ok_cpu or cpu.ref_kf != card["accepted"] or \
+            abs(cpu.tracker.n_inliers - card["n_in"]) > 2 or not d_c < RELOC_TOL_M or \
+            not d_r < RELOC_TOL_RAD:
+        raise AssertionError("card and CPU relocalizations disagree")
+
+    # Localization-only mode, going on from the replay: frames 60-105.
+    before = system.run_stats()
+    system.activate_localization_mode()
+    kernels.reset_launch_counts()
+    ok_loc, err_loc, vo_loc, secs = [], [], [], []
+    for i in LOC_FRAMES:
+        t, gray, depth = frames[i]
+        t0 = time.perf_counter()
+        ok_loc.append(system.track_rgbd(t + T_SHIFT, gray, depth))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        err_loc.append(centre_err(i))
+        vo_loc.append(system.visual_odometry)
+    loc_launches = kernels.launch_counts()
+    after = system.run_stats()
+    fixed = ("keyframes_inserted", "map_points_live")
+    print(f"phase 12 localization mode: frames {LOC_FRAMES[0]}-{LOC_FRAMES[-1]}, lost "
+          f"{ok_loc.count(False)}, {', '.join(f'{k} {before[k]} -> {after[k]}' for k in fixed)}, "
+          f"visual odometry on {sum(vo_loc)} frames, max centre error {max(err_loc):.6f} m, "
+          f"launches {loc_launches}, {len(secs) / sum(secs):.3f} frames/s, median "
+          f"{float(np.median(secs)) * 1e3:.3f} ms/frame | {smi}", flush=True)
+    if not all(ok_loc) or any(before[k] != after[k] for k in fixed) or any(vo_loc) or \
+            not max(err_loc) < GT_TOL:
+        raise AssertionError("localization mode: lost frames, a map change, VO or a pose error")
+    if loc_launches["pair_best2"] or loc_launches["lm_obs"] or \
+            loc_launches["fast_score_nms"] != len(LOC_FRAMES) or \
+            loc_launches["proj_best2"] < len(LOC_FRAMES):
+        raise AssertionError(f"localization mode launches {loc_launches}")
+
+    # The VO fallback: 3 % of the map points kept, then the map restored.
+    n_kf = system.n_keyframes
+    saved_valid = system.map.mp_valid
+    keep = torch.from_numpy(np.random.default_rng(12).random(system.map.M) < VO_KEEP).to(dev)
+    system.map = system.map._replace(mp_valid=saved_valid & keep)
+    kernels.reset_launch_counts()
+    ok_vo = [system.track_rgbd(frames[i][0] + T_SHIFT, *frames[i][1:]) for i in VO_FRAMES]
+    vo_on = system.visual_odometry
+    err_vo = centre_err(VO_FRAMES[-1])
+    system.map = system.map._replace(mp_valid=saved_valid)
+    ok_back = [system.track_rgbd(frames[i][0] + T_SHIFT, *frames[i][1:]) for i in BACK_FRAMES]
+    vo_back = system.visual_odometry
+    vo_launches = kernels.launch_counts()
+    system.deactivate_localization_mode()
+    print(f"phase 12 VO fallback: {VO_KEEP:.0%} of the map points kept, frames "
+          f"{VO_FRAMES[0]}-{VO_FRAMES[-1]} tracked {sum(ok_vo)} of {len(ok_vo)}, visual odometry "
+          f"{vo_on}, centre error at frame {VO_FRAMES[-1]} {err_vo:.6f} m; map restored, frames "
+          f"{BACK_FRAMES[0]}-{BACK_FRAMES[-1]} tracked {sum(ok_back)} of {len(ok_back)}, visual "
+          f"odometry {vo_back}; keyframes {n_kf} -> {system.n_keyframes}; launches "
+          f"{vo_launches}", flush=True)
+    if sum(ok_vo) < len(VO_FRAMES) - 1 or not vo_on or vo_back or system.n_keyframes != n_kf:
+        raise AssertionError("VO fallback: too few frames tracked or the flag did not move")
+    if vo_launches["pair_best2"] or vo_launches["lm_obs"] or not vo_launches["proj_best2"] or \
+            vo_launches["fast_score_nms"] != len(VO_FRAMES) + len(BACK_FRAMES):
+        raise AssertionError(f"VO fallback launches {vo_launches}")
+
+    # What a relocalization's linear algebra and a keyframe's index update cost.
+    g = torch.Generator().manual_seed(5)
+    sym = torch.randn((256, 4, 4), generator=g)
+    sym = (sym + sym.transpose(-1, -2)).to(dev)
+    a12 = torch.randn((256, 12, 12), generator=g).to(dev)
+    a3 = torch.randn((256, 3, 3), generator=g).to(dev)
+    m, idx, kw = system.map, system.retrieval, system._bank_kw
+    none = torch.full((SNAP_CULL_CAP,), -1, dtype=torch.int64, device=dev)
+    add = lambda: retrieval.add_keyframe(idx, 0, m.kf_desc[0], m.kf_kp_valid[0], **kw)  # noqa: E731
+    rm = lambda: retrieval.remove_keyframes(idx, none)  # noqa: E731
+    print(f"phase 12 costs: eigh (256, 4, 4) wall {wall_ms(lambda: torch.linalg.eigh(sym)):.4f} "
+          f"ms; svd (256, 12, 12) wall {wall_ms(lambda: torch.linalg.svd(a12)):.4f} ms; svd "
+          f"(256, 3, 3) wall {wall_ms(lambda: torch.linalg.svd(a3)):.4f} ms; retrieval index "
+          f"{(idx.hist.numel() + idx.presence.numel()) * 4 / 1e6:.1f} MB at K={m.K}; add_keyframe "
+          f"wall {wall_ms(add):.4f} ms, device {_profiled_ms(add):.4f} ms; remove_keyframes wall "
+          f"{wall_ms(rm):.4f} ms, device {_profiled_ms(rm):.4f} ms | {smi}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -287,7 +576,8 @@ def main() -> int:
     frames = bench.make_frames()
     from synthetic import oscillating_trajectory  # bench put tests/ on sys.path
 
-    gt_centres = _centres(oscillating_trajectory(len(frames)))
+    gt_poses = oscillating_trajectory(len(frames))
+    gt_centres = _centres(gt_poses)
     report = {}
 
     # 3. K1 against plain: each set of levels in one launch, bit for bit.
@@ -614,6 +904,10 @@ def main() -> int:
     if lost_cpu != lost[:N_PAR_MAP] or not same_kf or not diff < 1e-3 or \
             cpu_sys.stats.local_ba_runs < 1:
         raise AssertionError("CPU and CUDA runs disagree with mapping on")
+
+    # 12. recovery on phase 8's map: kidnap and relocalization, the same
+    # relocalization on the CPU, localization-only mode, the VO fallback.
+    _phase12(system, frames, gt_poses, smi)
 
     rows = []
     for k, src, rep in (

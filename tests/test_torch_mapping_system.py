@@ -33,7 +33,6 @@ from ydorbslam_tpu_torch.io import read_tum_trajectory
 from ydorbslam_tpu_torch.ops import launch_counts, reset_launch_counts
 from ydorbslam_tpu_torch.slam import mapping as pmapping
 from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
-from ydorbslam_tpu_torch.slam.tracking import TrackingState
 
 torch.set_num_threads(2)
 
@@ -154,22 +153,17 @@ def test_cpu_mapping_run_launches_no_kernel(runs):
 
 
 def test_unported_paths_raise(frames, runs):
-    """Loop closing and relocalization are refused loudly, naming their
-    ROADMAP slices; with mapping off loop closing has nothing to run on."""
+    """Loop closing and stereo tracking are refused loudly, naming their
+    ROADMAP slices; with mapping off loop closing has nothing to run on.
+    (Reaching LOST relocalizes: tests/test_torch_reloc_system.py.)"""
     with pytest.raises(NotImplementedError, match="slice 11"):
         SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
                    device="cpu")
     SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=False, enable_loop_closing=True,
                device="cpu")
     _, fr = frames
-    port = runs["port"]
-    state = port.tracker.state
-    try:
-        port.tracker.state = TrackingState.LOST
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            port.track_rgbd(fr[-1][0] + 1.0, fr[-1][1], fr[-1][2])
-    finally:
-        port.tracker.state = state
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        runs["port"].track_stereo(fr[-1][0] + 1.0, fr[-1][1], fr[-1][1])
 
 
 def test_reset_clears_the_map(frames):

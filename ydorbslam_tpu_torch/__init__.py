@@ -8,7 +8,8 @@ What is ported so far is the synchronous RGB-D path with local mapping
 on or off (``slam.system.SlamSystem(..., enable_loop_closing=False)``):
 ORB extraction, RGB-D depth association, projection matching, pose-only
 LM, local-map tracking, keyframe insertion and local mapping with its
-bundle adjustment.  The four TPU kernels on that path have hand-written
+bundle adjustment, relocalization after tracking is lost (retrieval
+index, RANSAC, pose LM) and the localization-only mode.  The four TPU kernels on that path have hand-written
 CUDA counterparts for Hopper (``csrc/``); every kernel has a plain
 PyTorch version of the same contract that CPU tensors take.
 

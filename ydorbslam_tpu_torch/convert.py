@@ -2,7 +2,7 @@
 
 SLAM has no learned weights: the state that has to carry across is the
 configuration, the camera, a frame's features, the tracker's state, the
-map and a bundle-adjustment problem.  Every function here takes plain
+map, the place-recognition index and a bundle-adjustment problem.  Every function here takes plain
 numpy arrays (call ``np.asarray`` on the JAX side), so this module
 imports neither JAX nor the JAX package.  With these a test can load a
 JAX tracker or map in the middle of a sequence into the port and step
@@ -24,6 +24,7 @@ from .geometry.camera import CameraIntrinsics
 from .ops.extractor import FrameFeatures
 from .optim.schur import BAProblem
 from .slam.map_state import MapState
+from .slam.retrieval import RetrievalIndex
 from .slam.tracking import Tracker, TrackingState
 
 _SECTIONS = dict(
@@ -93,6 +94,21 @@ def map_state_to_numpy(m: MapState) -> dict:
         a = v.cpu().numpy()
         out[name] = a.view(np.uint32) if name in _MAP_DESC else a
     return out
+
+
+def retrieval_index_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> RetrievalIndex:
+    """``RetrievalIndex`` from a mapping of field name -> numpy array of a
+    JAX ``RetrievalIndex`` (hist, presence, valid)."""
+    return RetrievalIndex(
+        hist=_t(fields["hist"], device, torch.float32),
+        presence=_t(fields["presence"], device, torch.float32),
+        valid=_t(fields["valid"], device, torch.bool),
+    )
+
+
+def retrieval_index_to_numpy(idx: RetrievalIndex) -> dict:
+    """The inverse of ``retrieval_index_from_numpy``."""
+    return {name: v.cpu().numpy() for name, v in idx._asdict().items()}
 
 
 def ba_problem_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> BAProblem:

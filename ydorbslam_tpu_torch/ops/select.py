@@ -29,10 +29,10 @@ def level_budgets(n_features: int, n_levels: int, scale_factor: float) -> List[i
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of a 1-D tensor with ties in ascending index order (the
-    order of ``jax.lax.top_k``)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """Top-k along the last dimension with ties in ascending index order
+    (the order of ``jax.lax.top_k``)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def select_topk_cells(
