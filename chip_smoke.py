@@ -80,6 +80,33 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      retrieval ``add_keyframe`` and ``remove_keyframes`` cost per call
      (the last two also in device time from torch.profiler).
      Each path's launch counts are set to 0 just before it.
+ 13. loop closing on the card: a fresh ``SlamSystem(..., enable_mapping=True,
+     enable_loop_closing=True, device="cuda")`` tracks
+     ``bench.make_revisit_frames()`` (a 100-frame drifted orbit and a
+     40-frame tail, 640x480, 1000 features, the capacities of phase 8)
+     and then ``shutdown()``.  Gates: a loop closes after the revisit
+     begins, with more than one cross-loop edge; the global BA finishes
+     and merges; the best camera-centre error after the closure is under
+     half the worst before it; the TUM-file ATE within 1.5x of the JAX
+     package's CPU figure on the same workload, and the tracked frames at
+     least its count less 2; the loop path's K2 launches are 2 per
+     verified candidate and ``loop_fuse_group`` per correction, its K4
+     launches 6 per global-BA chunk, 2 chunks per global BA; the host
+     waits on the card (CUDA's sync debug mode) no more than ``SYNC_MAX``
+     allows per call of each step (one read per poll, verification and
+     correction, and a verification's two ``eigh`` checks).  It prints
+     synchronised ms for detection per keyframe, verification,
+     correction, the essential graph (assembly and solve), each global-BA
+     chunk and the merge, the peak ``max_memory_allocated`` during global
+     BA, and frames/s.  The accepted loop event runs again on a CPU
+     ``SlamSystem`` from copies of the map, index, pending detection and
+     generator state taken just before it: the same candidates and gate
+     counts, S_12 within 1e-4 m and 1e-4 rad, corrected keyframe poses
+     within 1e-3 m (global BA left out on the CPU).  Then K2 on the
+     captured verification (1024 x 1024), guided (8192 x 1024) and fusion
+     (4096 x 1024) inputs, identical to plain, and K4 on the captured
+     global-BA input (32, 16, 16384) within rtol 2e-4, atol 2e-3, each
+     with device ms and its bound.
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -89,7 +116,8 @@ host enqueues the calls between the two events, so the events time the
 card's own work back to back.
 
 It prints one JSON line with every kernel's name, route, source, the
-TPU kernel it replaces, launches in the main path (phase 8), max abs
+TPU kernel it replaces, launches in the main path (phase 8) and in the
+loop path of phase 13 (``loop_launches``), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
 levels, one launch) and that of the plain version, the bound on that
 input (the larger of its bytes over 3.35 TB/s and its operations over
@@ -105,6 +133,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 
 N_WARM = 20
 N_OFF = 60  # frames of the mapping-off path
@@ -145,6 +174,20 @@ T_SHIFT = 200.0
 VO_KEEP = 0.03  # share of the map points kept for the VO fallback
 GT_TOL = 0.02  # m, camera centres against ground truth
 RELOC_TOL_M, RELOC_TOL_RAD = 1e-4, 1e-4  # card against CPU relocalization
+# Phase 13: the JAX package's figures on bench.make_revisit_frames(),
+# synchronous RGB-D with mapping and loop closing on, on a CPU
+# (tools/jax_revisit_reference.py): the TUM-file ATE and tracked frames.
+JAX_CPU_ATE_REVISIT = 0.3651492535120875
+JAX_CPU_TRACKED_REVISIT = 138
+N_CIRCUIT = 100  # frames of the orbit before the revisit
+LOOP_TOL_M, LOOP_TOL_RAD, LOOP_KF_TOL_M = 1e-4, 1e-4, 1e-3  # card against CPU loop event
+# The host's waits on the card allowed per call of each loop-closing step,
+# as CUDA's sync debug mode counts them: the poll reads the pending
+# detection once; a verification reads its pack once and waits on the
+# error checks of its RANSAC's two batched eigh; a correction reads its
+# bundle once.
+SYNC_MAX = {"poll": 1, "detect": 0, "verify": 3, "correct": 1, "chunk": 0, "merge": 0}
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def _bound(nbytes, lane_ops, popc=0.0):
@@ -292,11 +335,14 @@ def _profiled_ms(fn, calls=10):
 
 
 def _rot_angle(Ra, Rb):
-    """Angle in radians of the rotation between two rotation matrices."""
+    """Angle in radians of the rotation between two rotation matrices,
+    atan2 of its sine (half the norm of the skew part) and cosine: well
+    conditioned near zero, where arccos of the trace is not."""
     import numpy as np
 
-    c = (np.trace(np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)) - 1.0) / 2.0
-    return float(np.arccos(np.clip(c, -1.0, 1.0)))
+    M = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    w = np.array([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
+    return float(np.arctan2(0.5 * np.linalg.norm(w), 0.5 * (np.trace(M) - 1.0)))
 
 
 def _phase12(system, frames, gt_poses, smi):
@@ -531,6 +577,338 @@ def _phase12(system, frames, gt_poses, smi):
           f"{(idx.hist.numel() + idx.presence.numel()) * 4 / 1e6:.1f} MB at K={m.K}; add_keyframe "
           f"wall {wall_ms(add):.4f} ms, device {_profiled_ms(add):.4f} ms; remove_keyframes wall "
           f"{wall_ms(rm):.4f} ms, device {_profiled_ms(rm):.4f} ms | {smi}", flush=True)
+
+
+def _phase13(smi, report):
+    """Phase 13: loop closing on the card over the revisit workload, the
+    accepted loop event again on the CPU, and K2/K4 on the loop path's
+    captured inputs.  Fills ``report[k]["loop_launches"]``; any gate that
+    fails raises."""
+    import numpy as np
+    import torch
+
+    import bench
+    from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
+    from ydorbslam_tpu_torch.ops import hamming, kernels
+    from ydorbslam_tpu_torch.optim import lm_kernel, schur
+    from ydorbslam_tpu_torch.slam import loop_impl, matchers
+    from ydorbslam_tpu_torch.slam.map_state import MapState
+    from ydorbslam_tpu_torch.slam.retrieval import RetrievalIndex
+    from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
+    from ydorbslam_tpu_torch.testing import device_ms
+
+    frames = bench.make_revisit_frames()
+    from synthetic import OrbitDriftSequence  # bench put tests/ on sys.path
+
+    seq = OrbitDriftSequence(np.random.default_rng(7), n_frames=N_CIRCUIT, n_landmarks=1500,
+                             drift_rate=0.008)
+    system = SlamSystem(_config(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+                        device="cuda")
+    impl = system.loop_closer._impl
+    Impl = type(impl)
+    ms = {k: [] for k in ("detect", "verify", "correct", "essential", "pose_graph", "chunk",
+                          "merge")}
+    state = {"where": None}
+    captured, verified, chunk_mem, loop_launch = {}, [], [], {}
+    accepted = {}
+    syncs = {k: [] for k in SYNC_MAX}
+    sync_sites = {k: {} for k in SYNC_MAX}  # step -> "file:line" of the waiting call -> count
+
+    def quiet_sync():
+        """The timers' own synchronisation, left out of the sync counts."""
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(mode)
+
+    def synced(fn, key):
+        """Count the host's waits on the card inside ``fn``: CUDA's sync
+        debug mode warns at each (a read of a tensor, an upload from
+        pageable memory, a library's check of its error codes).  A counted
+        call inside another keeps its own count."""
+        def wrapper(*args, **kwargs):
+            mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                    waits = [w for w in seen if SYNC_WARNING in str(w.message)]
+                    syncs[key].append(len(waits))
+                    for w in waits:
+                        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                        sync_sites[key][site] = sync_sites[key].get(site, 0) + 1
+        return wrapper
+
+    def sync_timed(fn, key, where=None):
+        def wrapper(*args, **kwargs):
+            quiet_sync()
+            prev = state["where"]
+            if where is not None:
+                state["where"] = where
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                quiet_sync()
+            finally:
+                state["where"] = prev
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def keep_k2(desc_a, attr_a, desc_b, attr_b, check_ur=False):
+        # The last verification's searches; the first correction's first
+        # fusion search (into the query keyframe).
+        key = ("k2", desc_a.shape[0])
+        if state["where"] == "verify" or (state["where"] == "correct" and key not in captured):
+            captured[key] = tuple(t.clone() for t in (desc_a, attr_a, desc_b, attr_b))
+        return hamming.proj_best2(desc_a, attr_a, desc_b, attr_b, check_ur)
+
+    def keep_k4(inp):
+        if state["where"] == "chunk":
+            captured["k4"] = inp.clone()
+        return lm_kernel.lm_obs(inp)
+
+    def chunk(*args, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = timed_chunk(*args, **kwargs)
+        chunk_mem.append((base, torch.cuda.max_memory_allocated()))
+        return out
+
+    def verify(*args, **kwargs):
+        out = timed_verify(*args, **kwargs)
+        verified.append((args[1], args[2], out[0].clone()))
+        return out
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            before = kernels.launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                after = kernels.launch_counts()
+                for k in after:
+                    loop_launch[k] = loop_launch.get(k, 0) + after[k] - before[k]
+        return wrapper
+
+    def poll(self):
+        """Keep a copy of what the poll reads (on the card) before it runs;
+        the copy of the poll that closes a loop is kept for the CPU replay."""
+        snap = None
+        if self._pending is not None:
+            sysm = self.system
+            snap = dict(map=MapState(*(x.clone() for x in sysm.map)),
+                        retrieval=RetrievalIndex(*(x.clone() for x in sysm.retrieval)),
+                        pending=self._pending, gen=self.generator.get_state(),
+                        n_kf=sysm.n_keyframes, host_valid=sysm._host_kf_valid.copy(),
+                        host_fid=sysm._host_kf_frame_id.copy(), n_verified=len(verified))
+        closed = counted_poll(self) if snap is not None else orig_poll(self)
+        if closed and snap is not None and not accepted:
+            # The K2 inputs captured so far are the accepted candidate's
+            # verification searches and its correction's first fusion search.
+            accepted.update(snap, kf_pose=self.system.map.kf_pose.clone(),
+                            kf_valid=self.system.map.kf_valid.clone(),
+                            verified=verified[snap["n_verified"]:],
+                            k2={k[1]: v for k, v in captured.items() if k[0] == "k2"})
+        return closed
+
+    timed_chunk = sync_timed(loop_impl._lm_chunk, "chunk", "chunk")
+    timed_verify = sync_timed(loop_impl._verify_pack, "verify", "verify")
+    orig_poll = Impl._poll_pending
+    counted_poll = synced(orig_poll, "poll")
+    patches = [
+        (matchers, "proj_best2", keep_k2), (schur, "lm_obs", keep_k4),
+        (loop_impl, "_detect", synced(sync_timed(loop_impl._detect, "detect"), "detect")),
+        (loop_impl, "_verify_pack", verify),
+        (loop_impl, "_correct_on_device",
+         sync_timed(loop_impl._correct_on_device, "correct", "correct")),
+        (loop_impl, "optimize_pose_graph", sync_timed(loop_impl.optimize_pose_graph, "pose_graph")),
+        (loop_impl, "_lm_chunk", synced(chunk, "chunk")),
+        (loop_impl, "_merge_gba", synced(sync_timed(loop_impl._merge_gba, "merge"), "merge")),
+        (Impl, "_essential_graph", sync_timed(Impl._essential_graph, "essential")),
+        (Impl, "_compute_sim3", synced(Impl._compute_sim3, "verify")),
+        (Impl, "_correct", synced(Impl._correct, "correct")),
+        (Impl, "_poll_pending", poll),
+        (Impl, "process", counted(Impl.process)), (Impl, "flush", counted(Impl.flush)),
+    ]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    errs, oks, secs, loop_frame = [], [], [], None
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        kernels.reset_launch_counts()
+        for i, (t, gray, depth) in enumerate(frames):
+            t0 = time.perf_counter()
+            oks.append(bool(system.track_rgbd(t, gray, depth)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            T = system.tracker.T_cw.cpu().numpy().astype(np.float64)
+            errs.append(float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3] - seq.gt_center_est_frame(i))))
+            if loop_frame is None and system.loop_closer.n_loops_closed:
+                loop_frame = i
+        t0 = time.perf_counter()
+        system.shutdown()
+        torch.cuda.synchronize()
+        shutdown_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    stats = system.run_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "CameraTrajectory.txt")
+        system.save_trajectory_tum(path)
+        ts, pos_tum, _ = read_tum_trajectory(path)
+    gt = _centres([seq.pose(i) for i in range(len(frames))])
+    ate = ate_rmse(pos_tum, gt[[int(round(t * 30.0)) for t in ts]])
+    tracked = sum(oks)
+    steady = secs[N_WARM:]
+    pre = max(errs[N_CIRCUIT - 8:loop_frame + 1]) if loop_frame is not None else float("nan")
+    post = min(errs[loop_frame + 1:], default=float("nan")) if loop_frame is not None else float("nan")
+    n_verify, n_corr, n_chunks = len(ms["verify"]), len(ms["correct"]), len(ms["chunk"])
+    peak = max((p for _, p in chunk_mem), default=0)
+    base = max((b for b, _ in chunk_mem), default=0)
+
+    def med(v):
+        return f"{float(np.median(v)):.3f}" if v else "nan"
+
+    assembly = [e - p for e, p in zip(ms["essential"], ms["pose_graph"])]
+    print(f"phase 13 loop closing on: {len(frames)} frames of bench.make_revisit_frames(), tracked "
+          f"{tracked} (lost {len(frames) - tracked}), keyframes inserted "
+          f"{stats['keyframes_inserted']} live {stats['keyframes_live']}, map points "
+          f"{stats['map_points_live']}; loops closed {stats['loops_closed']} (events "
+          f"{stats['loop_events']}, first after frame {loop_frame}), cross-loop edges "
+          f"{stats['loop_conn_edges']}, candidate sets {stats['loop_candidates']}, verify fails "
+          f"{ {k: v for k, v in stats['loop_verify_fails'].items() if k != 'bow_diag'} }, global "
+          f"BA runs {stats['global_ba_runs']}; camera-centre error worst before the closure "
+          f"{pre:.6f} m, best after {post:.6f} m; TUM rows {len(ts)}, ATE {ate:.6f} m (JAX on a "
+          f"CPU {JAX_CPU_ATE_REVISIT:.6f}, tracked {JAX_CPU_TRACKED_REVISIT}); "
+          f"{len(steady) / sum(steady):.3f} frames/s, median {float(np.median(steady)) * 1e3:.3f} "
+          f"ms/frame after {N_WARM} warm-up frames; shutdown {shutdown_ms:.3f} ms | {smi}",
+          flush=True)
+    print(f"phase 13 synchronised ms (median, min-max, calls): detection "
+          f"{med(ms['detect'])} ({min(ms['detect'], default=0):.3f}-"
+          f"{max(ms['detect'], default=0):.3f}, {len(ms['detect'])}); verification "
+          f"{med(ms['verify'])} ({min(ms['verify'], default=0):.3f}-"
+          f"{max(ms['verify'], default=0):.3f}, {n_verify}); correction {ms['correct']}; "
+          f"essential graph {ms['essential']} (assembly {assembly}, solve {ms['pose_graph']}); "
+          f"global-BA chunks {ms['chunk']}; merge {ms['merge']}; peak max_memory_allocated in "
+          f"global BA {peak / 2**20:.1f} MiB (allocated before a chunk {base / 2**20:.1f} MiB); "
+          f"K4 input {tuple(captured['k4'].shape) if 'k4' in captured else None}; launches of "
+          f"the run {launches}, of the loop path {loop_launch} | {smi}", flush=True)
+    print("phase 13 host waits on the card per call (CUDA sync debug mode; min-max, calls, "
+          "allowed): " + "; ".join(
+              f"{k} {min(v, default=0)}-{max(v, default=0)} ({len(v)}, <= {SYNC_MAX[k]}; "
+              f"at {sync_sites[k]})" for k, v in syncs.items()) + f" | {smi}", flush=True)
+    over = {k: max(v) for k, v in syncs.items() if v and max(v) > SYNC_MAX[k]}
+    if over or not syncs["verify"] or not syncs["correct"]:
+        raise AssertionError(f"loop closing: host waits on the card over their budget {over}")
+    if stats["loops_closed"] < 1 or loop_frame is None or loop_frame < N_CIRCUIT:
+        raise AssertionError(f"loop closing: no loop after the revisit (first after frame "
+                             f"{loop_frame})")
+    if not stats["loop_conn_edges"] or stats["loop_conn_edges"][0] <= 1:
+        raise AssertionError(f"loop closing: cross-loop edges {stats['loop_conn_edges']}")
+    if stats["global_ba_runs"] < 1 or impl._gba is not None or not ms["merge"] or \
+            n_chunks != 2 * stats["global_ba_runs"]:
+        raise AssertionError(f"global BA: {stats['global_ba_runs']} runs, {n_chunks} chunks, "
+                             f"{len(ms['merge'])} merges, in flight {impl._gba is not None}")
+    if not post < 0.5 * pre:
+        raise AssertionError(f"loop closing: best error after {post} not under half of {pre}")
+    if not ate <= 1.5 * JAX_CPU_ATE_REVISIT or tracked < JAX_CPU_TRACKED_REVISIT - 2:
+        raise AssertionError(f"loop closing: ATE {ate}, tracked {tracked}")
+    fuse = system.cfg.capacity.loop_fuse_group
+    if loop_launch.get("proj_best2", 0) != 2 * n_verify + fuse * n_corr or \
+            loop_launch.get("lm_obs", 0) != 6 * n_chunks or loop_launch.get("pair_best2", 0) or \
+            loop_launch.get("fast_score_nms", 0):
+        raise AssertionError(f"loop path launches {loop_launch}: {n_verify} verifications, "
+                             f"{n_corr} corrections, {n_chunks} chunks")
+
+    # The accepted loop event again on the CPU.
+    cpu = SlamSystem(_config(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+                     device="cpu")
+    cpu.map = MapState(*(x.cpu() for x in accepted["map"]))
+    cpu.retrieval = RetrievalIndex(*(x.cpu() for x in accepted["retrieval"]))
+    cpu.n_keyframes = accepted["n_kf"]
+    cpu._host_kf_valid, cpu._host_kf_frame_id = accepted["host_valid"], accepted["host_fid"]
+    cimpl = cpu.loop_closer._impl
+    kf_id, fid, packed = accepted["pending"]
+    cimpl._pending = (kf_id, fid, packed.cpu())
+    cimpl.generator.set_state(accepted["gen"])
+    cpu_verified = []
+    orig_vp = loop_impl._verify_pack
+
+    def cpu_verify(*args, **kwargs):
+        out = orig_vp(*args, **kwargs)
+        cpu_verified.append((args[1], args[2], out[0].clone()))
+        return out
+
+    loop_impl._verify_pack = cpu_verify
+    try:
+        t0 = time.perf_counter()
+        closed_cpu = cimpl._poll_pending()
+        cpu_s = time.perf_counter() - t0
+    finally:
+        loop_impl._verify_pack = orig_vp
+    cimpl._gba = None  # global BA is left out on the CPU
+    card_v = [(a, b, v.cpu().numpy()) for a, b, v in accepted["verified"]]
+    cpu_v = [(a, b, v.numpy()) for a, b, v in cpu_verified]
+    same_gates = [a[:2] == b[:2] and np.array_equal(a[2][:6], b[2][:6]) for a, b in zip(card_v, cpu_v)]
+    S_card = card_v[-1][2][6:].reshape(4, 4).astype(np.float64)
+    S_cpu = cpu_v[-1][2][6:].reshape(4, 4).astype(np.float64)
+    d_t = float(np.linalg.norm(S_card[:3, 3] - S_cpu[:3, 3]))
+    d_r = _rot_angle(S_card[:3, :3], S_cpu[:3, :3])
+    kv = accepted["kf_valid"].cpu().numpy()
+    c_card = _centres(accepted["kf_pose"].cpu().numpy()[kv])
+    c_cpu = _centres(cpu.map.kf_pose.numpy()[kv])
+    d_kf = float(np.abs(c_card - c_cpu).max())
+    print(f"phase 13 card against CPU on the accepted loop event (keyframe {kf_id}): verified "
+          f"card {[(a, b) for a, b, _ in card_v]} CPU {[(a, b) for a, b, _ in cpu_v]}, gate counts "
+          f"card {[v[:6].tolist() for _, _, v in card_v]} CPU {[v[:6].tolist() for _, _, v in cpu_v]}"
+          f"; S_12 {d_t:.3e} m, {d_r:.3e} rad apart; corrected keyframe centres max "
+          f"{d_kf:.3e} m apart ({int(kv.sum())} keyframes); CPU poll {cpu_s:.1f} s", flush=True)
+    if not closed_cpu or len(card_v) != len(cpu_v) or not all(same_gates) or \
+            not d_t < LOOP_TOL_M or not d_r < LOOP_TOL_RAD or not d_kf < LOOP_KF_TOL_M:
+        raise AssertionError("card and CPU loop events disagree")
+
+    # K2 on the accepted loop event's inputs, K4 on global BA's last input.
+    lines = []
+    for label, M in (("verification", 1024), ("guided", 8192), ("fusion", 4096)):
+        prob = accepted["k2"].get(M)
+        if prob is None:
+            raise AssertionError(f"no {label} K2 input captured ({sorted(accepted['k2'])})")
+        _same_k2(prob, False, f"loop {label}")
+        pairs, gated, bms, bby = _k2_work(prob, False)
+        dev_ms = device_ms(lambda: kernels.proj_best2_cuda(*prob, check_ur=False))
+        plain = device_ms(lambda: hamming.proj_best2_plain(*prob, check_ur=False), calls=5, reps=5)
+        lines.append(f"K2 {label} {prob[0].shape[0]}x{prob[2].shape[0]}: identical; {gated} of "
+                     f"{pairs} pairs gated; device {dev_ms:.4f} ms; plain device {plain:.4f} ms; "
+                     f"bound {bms:.5f} ms ({bby})")
+    inp = captured["k4"]
+    kq, kp = kernels.lm_obs_cuda(inp)
+    pq, pp = lm_kernel.lm_obs_plain(inp)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in ((kq, pq), (kp, pp)):
+        if a.shape != b.shape or not torch.isfinite(b).all():
+            raise AssertionError("K4 plain version malformed or not finite on the global-BA input")
+        if ((a - b).abs() > K4_ATOL + K4_RTOL * b.abs()).any():
+            raise AssertionError("K4 differs from plain on the global-BA input")
+        err = max(err, float((a - b).abs().max()))
+    _, O4, P4 = inp.shape
+    k4_bound, k4_by = _bound(((K4_ROWS_READ + lm_kernel.NOUT_Q) * O4 * P4
+                              + lm_kernel.NOUT_P * P4) * 4, O4 * P4 * K4_OPS_OBS)
+    k4_dev = device_ms(lambda: kernels.lm_obs_cuda(inp))
+    k4_plain = device_ms(lambda: lm_kernel.lm_obs_plain(inp), calls=5, reps=5)
+    lines.append(f"K4 global BA {tuple(inp.shape)}: within rtol {K4_RTOL}, atol {K4_ATOL}, max abs "
+                 f"error {err:.3e}; device {k4_dev:.4f} ms; plain device {k4_plain:.4f} ms; bound "
+                 f"{k4_bound:.5f} ms ({k4_by})")
+    print("phase 13 kernels on the loop path's inputs: " + " | ".join(lines) + f" | {smi}",
+          flush=True)
+    for k in report:
+        report[k]["loop_launches"] = loop_launch.get(k, 0)
 
 
 def main() -> int:
@@ -908,6 +1286,10 @@ def main() -> int:
     # 12. recovery on phase 8's map: kidnap and relocalization, the same
     # relocalization on the CPU, localization-only mode, the VO fallback.
     _phase12(system, frames, gt_poses, smi)
+    del system
+
+    # 13. loop closing on the card, on the revisit workload.
+    _phase13(smi, report)
 
     rows = []
     for k, src, rep in (
@@ -924,7 +1306,8 @@ def main() -> int:
         rows.append(dict(name=k, route="cuda", source=src, replaces=rep,
                          launches=r["launches"], max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                         bound_by=r["bound_by"], library_ms=None))
+                         bound_by=r["bound_by"], library_ms=None,
+                         loop_launches=r["loop_launches"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

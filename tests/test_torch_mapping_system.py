@@ -153,14 +153,22 @@ def test_cpu_mapping_run_launches_no_kernel(runs):
 
 
 def test_unported_paths_raise(frames, runs):
-    """Loop closing and stereo tracking are refused loudly, naming their
-    ROADMAP slices; with mapping off loop closing has nothing to run on.
-    (Reaching LOST relocalizes: tests/test_torch_reloc_system.py.)"""
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+    """Stereo tracking is refused loudly, naming its ROADMAP slice.  Loop
+    closing with mapping builds a ``LoopCloser`` (tests/test_torch_loop_*.py
+    hold it against JAX); with mapping off loop closing has nothing to run
+    on and none is built.  (Reaching LOST relocalizes:
+    tests/test_torch_reloc_system.py.)"""
+    from ydorbslam_tpu_torch.slam.loop import LoopCloser
+
+    s = SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
                    device="cpu")
-    SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=False, enable_loop_closing=True,
-               device="cpu")
+    assert isinstance(s.loop_closer, LoopCloser) and s.loop_closer.n_loops_closed == 0
+    s.reset()
+    assert isinstance(s.loop_closer, LoopCloser)
+    off = SlamSystem(port_cfg(), Sensor.RGBD, enable_mapping=False, enable_loop_closing=True,
+                     device="cpu")
+    assert off.loop_closer is None
+    off.shutdown()  # nothing to flush
     _, fr = frames
     with pytest.raises(NotImplementedError, match="slice 12"):
         runs["port"].track_stereo(fr[-1][0] + 1.0, fr[-1][1], fr[-1][1])

@@ -143,10 +143,11 @@ def test_features_convert_keeps_descriptor_bits():
 
 def test_unported_paths_raise_and_dispatch_refuses_other_devices():
     cfg = config_from_dict(dataclasses.asdict(make_cfg()))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        SlamSystem(cfg, Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+    # Loop closing is ported: with mapping it builds the closer.
+    s = SlamSystem(cfg, Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
                    device="cpu")
-    with pytest.raises(NotImplementedError):
+    assert s.loop_closer is not None
+    with pytest.raises(NotImplementedError, match="slice 12"):
         port_system().track_stereo(0.0, None, None)
     meta = torch.zeros((64, 64), device="meta")
     with pytest.raises(ValueError):
@@ -198,3 +199,35 @@ def test_port_imports_without_jax():
                     src = f.read()
                 assert "import jax" not in src and "from jax" not in src, name
                 assert "ydorbslam_tpu." not in src.replace("ydorbslam_tpu_torch", ""), name
+
+
+def test_depth_divisor_is_made_once(seq, monkeypatch):
+    """The uint16 depth divisor is a tensor made when the tracker is built
+    (ROADMAP Queue 3, F3): a frame makes no tensor from the factor, and
+    the depth is still the float32 quotient of the raw value by it."""
+    from ydorbslam_tpu_torch.slam import tracking
+
+    _, frames = seq
+    t, gray, depth = frames[0]
+    raw = (np.asarray(depth) * 5000.0).astype(np.uint16)
+    cfg = config_from_dict(dataclasses.asdict(make_cfg()))
+    tr = Tracker(cfg, device="cpu")
+    assert tr.depth_factor.dim() == 0 and tr.depth_factor.dtype == torch.float32
+    assert float(tr.depth_factor) == cfg.depth.depth_map_factor
+    made, seen = [], {}
+    real_tensor, real_fill = torch.tensor, tracking.fill_depth_from_rgbd
+
+    def counting_tensor(data, *a, **k):
+        made.append(data)
+        return real_tensor(data, *a, **k)
+
+    def keep_depth(feats, d, cam):
+        seen["d"] = d
+        return real_fill(feats, d, cam)
+
+    monkeypatch.setattr(torch, "tensor", counting_tensor)
+    monkeypatch.setattr(tracking, "fill_depth_from_rgbd", keep_depth)
+    tr.track_rgbd(t, gray, raw)
+    assert not any(isinstance(x, float) and x == cfg.depth.depth_map_factor for x in made)
+    expect = raw.astype(np.float32) / np.float32(cfg.depth.depth_map_factor)
+    np.testing.assert_array_equal(seen["d"].numpy(), expect)

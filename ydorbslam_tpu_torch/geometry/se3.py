@@ -32,6 +32,11 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([M[..., 2, 1], M[..., 0, 2], M[..., 1, 0]], dim=-1)
+
+
 def _eye_like(K: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
 
@@ -46,6 +51,35 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     K = hat(phi)
     K2 = K @ K
     return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * K2
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map of SO(3): (...,3,3) -> (...,3), safe near 0 and pi.  The
+    angle comes from atan2(|w|, trace) with w = vee(R - R^T), the
+    epsilon inside the square root keeps the derivative finite at the
+    identity, and near pi the axis is read off (R + R^T)/2."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w = vee(R - R.transpose(-1, -2))  # 2 sin(theta) * axis
+    sin_t = 0.5 * torch.sqrt(torch.sum(w * w, dim=-1) + _EPS * _EPS)
+    theta = torch.atan2(sin_t, cos_t)
+    near_zero = theta < 1e-4
+    scale = torch.where(
+        near_zero, 0.5 + theta * theta / 12.0, theta / (2.0 * torch.clamp(sin_t, min=_EPS))
+    )
+    phi = scale[..., None] * w
+    near_pi = theta > 3.1386  # within ~3e-3 of pi
+    sym = 0.5 * (R + R.transpose(-1, -2))
+    eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
+    outer = (sym - cos_t[..., None, None] * eye) / torch.clamp(
+        1.0 - cos_t[..., None, None], min=0.5
+    )
+    diag = torch.stack([outer[..., 0, 0], outer[..., 1, 1], outer[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    col = torch.gather(outer, -1, k[..., None, None].expand(outer.shape[:-1] + (1,)))[..., 0]
+    axis = col / torch.clamp(torch.linalg.norm(col, dim=-1, keepdim=True), min=_EPS)
+    sign = torch.where(torch.sum(axis * w, dim=-1, keepdim=True) < 0.0, -1.0, 1.0)
+    return torch.where(near_pi[..., None], theta[..., None] * axis * sign, phi)
 
 
 def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
@@ -69,8 +103,10 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # [0, 0, 0, 1] made on the device: setting a Python number into a
+    # single element of a card tensor is an upload that stalls the host.
+    bottom = torch.cat([torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device),
+                        torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device)], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

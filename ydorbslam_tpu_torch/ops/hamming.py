@@ -217,7 +217,7 @@ def rotation_histogram_mask(
     bins below 10% of the best (the reference's computeThreeMaxima).
     Ties between bins go to the lower bin, as ``jax.lax.top_k``."""
     dev = angle_a.device
-    two_pi = torch.tensor(2.0 * torch.pi, dtype=torch.float32, device=dev)
+    two_pi = torch.full((), 2.0 * torch.pi, dtype=torch.float32, device=dev)
     diff = torch.remainder(angle_a - angle_b_matched, two_pi)  # [0, 2pi)
     bins = torch.clamp((diff * n_bins / two_pi).to(torch.int32), 0, n_bins - 1)
     counts = torch.zeros(n_bins, dtype=torch.int32, device=dev).index_add_(

@@ -102,6 +102,14 @@ def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:
     return (scale_factor ** np.arange(n_levels)).astype(np.float32)
 
 
+@functools.lru_cache()
+def scale_table(n_levels: int, scale_factor: float, device: torch.device) -> torch.Tensor:
+    """``scale_factors`` on ``device``, copied there once: an upload from
+    the host stalls the card, and the searches run per frame and per
+    loop verification."""
+    return torch.from_numpy(scale_factors(n_levels, scale_factor)).to(device)
+
+
 def level_sigma2(n_levels: int, scale_factor: float) -> np.ndarray:
     """Per-level variance used as information weights in optimization."""
     return (scale_factor ** (2.0 * np.arange(n_levels))).astype(np.float32)

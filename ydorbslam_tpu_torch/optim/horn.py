@@ -7,13 +7,23 @@ batch dimensions, so a whole RANSAC hypothesis batch is one
 ``torch.linalg.eigh`` over (B, 4, 4) in place of the JAX package's
 ``jax.vmap``.  An eigenvector is defined only up to its sign; R is
 quadratic in the quaternion, so either sign gives the same R.
-``ransac_sim3`` serves loop closing and comes with it (ROADMAP slice 11).
+
+``ransac_sim3`` is loop verification's hypothesis stage (Sim3Solver's
+RANSAC, sim3Solver.cpp:134-224): B minimal sets of three pairs, B Horn
+solves in one batch, the two-way reprojection inlier test at 9.210 sigma^2,
+the best hypothesis by its count (the first maximum), and one refit on
+its inliers that is kept when it loses none.  The minimal sets come as
+``picks=`` or from uniforms of a CPU ``torch.Generator``
+(``optim.pnp.choice_picks``), as in relocalization.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
-from ..geometry.sim3 import make_S
+from ..geometry.camera import CameraIntrinsics
+from ..geometry.sim3 import inv_S, make_S
 
 
 def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = True) -> torch.Tensor:
@@ -24,8 +34,12 @@ def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = True) -> tor
     loopClosing.cpp:132)."""
     c1 = p1.mean(dim=-2)
     c2 = p2.mean(dim=-2)
-    q1 = p1 - c1[..., None, :]
-    q2 = p2 - c2[..., None, :]
+    return _horn_centered(c1, c2, p1 - c1[..., None, :], p2 - c2[..., None, :], fix_scale)
+
+
+def _horn_centered(c1, c2, q1, q2, fix_scale: bool) -> torch.Tensor:
+    """Horn's solve from centroids (..., 3) and centred (possibly
+    weighted) point sets (..., N, 3)."""
     # M = sum q1_i q2_i^T; maximise trace(R M^T) through the quaternion eigenvector.
     M = q1.transpose(-1, -2) @ q2
     Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
@@ -58,3 +72,75 @@ def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = True) -> tor
         )
     t = c1 - s[..., None] * (R @ c2[..., None])[..., 0]
     return make_S(s, R, t)
+
+
+class Sim3RansacResult(NamedTuple):
+    S_12: torch.Tensor  # (4,4) best similarity
+    inliers: torch.Tensor  # (N,) bool
+    n_inliers: torch.Tensor  # () int64
+    ok: torch.Tensor  # () bool
+
+
+def _project(cam: CameraIntrinsics, p: torch.Tensor) -> torch.Tensor:
+    z = torch.clamp(p[..., 2], min=1e-6)
+    return torch.stack([cam.fx * p[..., 0] / z + cam.cx, cam.fy * p[..., 1] / z + cam.cy], dim=-1)
+
+
+def _two_way_inliers(cam, S12, p1, p2, obs1, obs2, s2_1, s2_2, valid):
+    """(..., N) two-way reprojection inliers of similarities S12 (..., 4, 4)."""
+    S21 = inv_S(S12)
+    p2_in_1 = p2 @ S12[..., :3, :3].transpose(-1, -2) + S12[..., None, :3, 3]
+    p1_in_2 = p1 @ S21[..., :3, :3].transpose(-1, -2) + S21[..., None, :3, 3]
+    e1 = torch.sum((_project(cam, p2_in_1) - obs1) ** 2, dim=-1)
+    e2 = torch.sum((_project(cam, p1_in_2) - obs2) ** 2, dim=-1)
+    return (valid & (e1 < 9.210 * s2_1) & (e2 < 9.210 * s2_2)
+            & (p2_in_1[..., 2] > 0) & (p1_in_2[..., 2] > 0))
+
+
+def ransac_sim3(
+    cam: CameraIntrinsics,
+    p1_cam: torch.Tensor,  # (N,3) matched points in camera-1 frame
+    p2_cam: torch.Tensor,  # (N,3) matched points in camera-2 frame
+    sigma2_1: torch.Tensor,  # (N,) octave sigma^2 in frame 1
+    sigma2_2: torch.Tensor,  # (N,)
+    valid: torch.Tensor,  # (N,) bool
+    n_hypotheses: int = 256,
+    min_inliers: int = 20,
+    fix_scale: bool = True,
+    picks: Optional[torch.Tensor] = None,  # (B,3) minimal sets, else drawn
+    generator: Optional[torch.Generator] = None,
+) -> Sim3RansacResult:
+    """Batched RANSAC over 3-point Horn hypotheses with the two-way
+    reprojection test; no host synchronisation."""
+    from .pnp import _draw, _pick
+
+    if picks is None:
+        picks = _draw(valid, (n_hypotheses, 3), generator)
+    S_batch = horn_sim3(p1_cam[picks], p2_cam[picks], fix_scale=fix_scale)  # (B,4,4)
+    obs1, obs2 = _project(cam, p1_cam), _project(cam, p2_cam)
+
+    def inliers(S):
+        return _two_way_inliers(cam, S, p1_cam, p2_cam, obs1, obs2, sigma2_1, sigma2_2, valid)
+
+    inl = inliers(S_batch)  # (B,N)
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts, dim=0, keepdim=True)  # the first maximum
+    best_S, best_inl, n_best = _pick(S_batch, best), _pick(inl, best), _pick(counts, best)
+    # Refit on the best hypothesis's inliers: masked centroids, weighted
+    # centred points.
+    w = best_inl.to(torch.float32)[:, None]
+    nw = torch.clamp(n_best.to(torch.float32), min=1.0)
+    c1 = torch.sum(torch.where(best_inl[:, None], p1_cam, 0.0), dim=0) / nw
+    c2 = torch.sum(torch.where(best_inl[:, None], p2_cam, 0.0), dim=0) / nw
+    S_fine = _horn_centered(c1, c2, (p1_cam - c1) * w, (p2_cam - c2) * w, fix_scale)
+    S_fine = torch.where(n_best >= 3, S_fine, best_S)
+    inl_fine = inliers(S_fine)
+    n_fine = torch.sum(inl_fine)
+    use_fine = n_fine >= n_best
+    n_out = torch.where(use_fine, n_fine, n_best)
+    return Sim3RansacResult(
+        S_12=torch.where(use_fine, S_fine, best_S),
+        inliers=torch.where(use_fine, inl_fine, best_inl),
+        n_inliers=n_out,
+        ok=(n_out >= min_inliers) & (torch.sum(valid) >= 3),
+    )

@@ -51,7 +51,9 @@ def _draw(eligible: torch.Tensor, shape, generator: Optional[torch.Generator]) -
     probs = eligible.to(torch.float32)
     probs = probs / torch.clamp(probs.sum(), min=1e-6)
     u = torch.rand(shape, generator=generator, dtype=torch.float32)
-    return choice_picks(probs, u.to(eligible.device))
+    if eligible.is_cuda:  # from pinned memory the upload does not stall the host
+        u = u.pin_memory().to(eligible.device, non_blocking=True)
+    return choice_picks(probs, u)
 
 
 def _inliers(cam: CameraIntrinsics, T, p_w, uv, sigma2, valid, chi2: float):

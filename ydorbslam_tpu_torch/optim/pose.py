@@ -111,7 +111,7 @@ def _lm_refine(cam, T0, obs, active, iters: int, use_huber: bool, delta2):
     eye = torch.eye(6, dtype=torch.float32, device=T0.device)
     H, b, cost = _normal_equations(cam, T0, obs, active, use_huber, delta2)
     T = T0
-    lam = torch.tensor(1e-3, dtype=torch.float32, device=T0.device)
+    lam = torch.full((), 1e-3, dtype=torch.float32, device=T0.device)
     for _ in range(iters):
         damped = H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye
         dx = -_solve_spd6(damped, b)
@@ -141,8 +141,8 @@ def optimize_pose(
     device; the count is matches minus outliers."""
     delta2 = torch.where(
         obs.has_stereo,
-        torch.tensor(CHI2_STEREO, dtype=torch.float32, device=T_cw_init.device),
-        torch.tensor(CHI2_MONO, dtype=torch.float32, device=T_cw_init.device),
+        torch.full((), CHI2_STEREO, dtype=torch.float32, device=T_cw_init.device),
+        torch.full((), CHI2_MONO, dtype=torch.float32, device=T_cw_init.device),
     )
     inlier = obs.valid
     T = T_cw_init

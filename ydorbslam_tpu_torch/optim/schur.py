@@ -1,7 +1,8 @@
 """Bundle adjustment by Levenberg-Marquardt with a Schur complement.
 
 Port of the local-BA path of ``ydorbslam_tpu/optim/schur.py``
-(``bundle_adjust`` -> ``lm_solve`` -> ``_flat_system`` / ``_flat_step``):
+(``bundle_adjust`` -> ``lm_solve`` -> ``_flat_system`` / ``_flat_step``)
+and of global BA's chunk (``_lm_chunk``, loop closing's step):
 observations are grouped by point into fixed (P, O) slots and flattened
 o-major (q = o * P + p); each LM iteration makes one observation pass
 (K4, ``optim.lm_kernel.lm_obs``, on every device), marginalises the
@@ -22,7 +23,7 @@ positive definite) gives a zero camera step, as the NaN factor of
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -314,11 +315,13 @@ def lm_solve(
     iters: int,
     use_huber: bool,
     active: torch.Tensor,
-    lam0: float = 1e-4,
+    lam0: Union[float, torch.Tensor] = 1e-4,
 ):
     """Fixed-iteration LM with accept/reject damping: one observation
     pass per iteration (the candidate's system pass carries its cost,
-    which is the accept/reject test).  Returns (T, p, cost, lam)."""
+    which is the accept/reject test).  ``lam0`` is the starting damping:
+    a float, or a 0-dim tensor that carries the damping of an earlier
+    chunk.  Returns (T, p, cost, lam)."""
     dev = prob.p_w.device
     f = _flatten_obs(prob)
     active_flat = _po_flat(active)
@@ -328,7 +331,8 @@ def lm_solve(
 
     sysc = system(prob.T_cw, prob.p_w)
     T, p, cost = prob.T_cw, prob.p_w, sysc.cost
-    lam = torch.full((), lam0, dtype=torch.float32, device=dev)
+    lam = lam0 if isinstance(lam0, torch.Tensor) else torch.full(
+        (), lam0, dtype=torch.float32, device=dev)
     for _ in range(iters):
         T_new, p_new = _flat_step(cam, prob, f, sysc, T, p, lam)
         sys_new = system(T_new, p_new)
@@ -375,3 +379,13 @@ def bundle_adjust(
         T, p, _, _ = lm_solve(cam, prob, iters2, True, active0)
     chi2, mask = flat_chi2_mask(T, p)
     return T, p, mask & (chi2 > delta2)
+
+
+def _lm_chunk(cam: CameraIntrinsics, prob: BAProblem, T, p, lam, chunk: int = 5):
+    """``chunk`` robust LM iterations from (T, p) carrying the damping
+    ``lam``: one step of the global BA that loop closing advances per
+    keyframe.  Returns (T, p, lam)."""
+    T_new, p_new, _, lam_new = lm_solve(
+        cam, prob._replace(T_cw=T, p_w=p), chunk, True, prob.obs_valid, lam0=lam
+    )
+    return T_new, p_new, lam_new

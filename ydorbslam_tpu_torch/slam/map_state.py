@@ -491,6 +491,27 @@ def update_covisibility(m: MapState, kf_id: int) -> MapState:
     return m._replace(covis=covis, parent=scatter_set(m.parent, kf_id, parent))
 
 
+def recompute_covis_all(m: MapState) -> MapState:
+    """Rebuild the whole covisibility matrix from the observation lists
+    (the loop correction's updateConnections sweep, loopClosing.cpp:
+    311-317): weight(i, j) = the number of valid points observed by both
+    i and j, with a zero diagonal and no weight to or from a keyframe
+    that is not valid.  The JAX package sums (B, K) one-hot blocks of
+    4096 points; here one (M, K) 0/1 incidence product gives the same
+    integers (exact in float32 below 2^24 points), with the spanning
+    tree and parents untouched."""
+    K, M = m.K, m.M
+    dev = m.device
+    obs = m.mp_obs_kf.to(torch.int64)
+    col = torch.where((obs >= 0) & m.mp_valid[:, None], obs, K)
+    inc = torch.zeros((M, K + 1), dtype=torch.float32, device=dev)
+    inc.scatter_(1, col, 1.0)
+    A = inc[:, :K]
+    covis = (A.T @ A).to(torch.int32)
+    ok = m.kf_valid[:, None] & m.kf_valid[None, :] & ~torch.eye(K, dtype=torch.bool, device=dev)
+    return m._replace(covis=torch.where(ok, covis, 0))
+
+
 # ----------------------------------------------------------------------
 # Keyframe insertion
 # ----------------------------------------------------------------------
@@ -578,6 +599,8 @@ def insert_keyframe(
 
     def row(arr, v):
         out = arr.clone()
+        if not isinstance(v, torch.Tensor):  # a fill: a Python number set in place is an upload
+            v = torch.full((), v, dtype=arr.dtype, device=dev)
         out[kf_id] = v
         return out
 

@@ -144,7 +144,9 @@ def build_local_ba(
     T = m.kf_pose[camc]
     cam_fixed = torch.arange(C, device=dev) >= win.shape[0]
     # KF id 0 (the map origin) is always fixed (optimizer.cpp:27,176).
-    cam_fixed = cam_fixed | (m.kf_frame_id[camc] == m.kf_frame_id[argmax_first(m.kf_valid)])
+    # (The origin's index as a (1,) tensor: indexing with a 0-dim one reads it on the host.)
+    origin = argmax_first(m.kf_valid).reshape(1)
+    cam_fixed = cam_fixed | (m.kf_frame_id[camc] == m.kf_frame_id[origin])
     # LUT keyframe id -> local cam index.  Padded cameras write -1 to
     # slot 0 after any real camera there; the last update wins, as in
     # the JAX package (a behaviour of the reference, ROADMAP Queue 3).

@@ -3,7 +3,8 @@
 Port of the tracking part of ``ydorbslam_tpu/slam/matchers.py``: the
 motion-model search (``match_motion_model``, and its two-radius form
 ``match_motion_model_two``), the appearance-only fallback
-(``match_dense``) and the local-map search (``match_local_points``).  Every best/second search goes through the K2
+(``match_dense``), the local-map search (``match_local_points``) and loop
+closing's fusion search (``match_fuse_points``).  Every best/second search goes through the K2
 dispatcher ``ops.hamming.proj_best2``: gates travel as per-row and
 per-column attribute packs, the kernel (or its plain version) returns
 per-row (idx, best, second), and ``_resolve_columns`` turns those into
@@ -25,7 +26,7 @@ from ..geometry.camera import CameraIntrinsics
 from ..geometry.se3 import inv_T
 from ..ops.extractor import FrameFeatures
 from ..ops.hamming import INVALID_DIST, proj_best2, rotation_histogram_mask
-from ..ops.pyramid import scale_factors
+from ..ops.pyramid import scale_table
 
 TH_HIGH = 100
 TH_LOW = 50
@@ -137,8 +138,7 @@ def _motion_attr(cam, curr, last, last_landmarks_w, last_lm_valid, T_cw_pred,
     """Row-side pack of the motion-model search: projections of the last
     frame's landmarks, the forward/backward octave range and the
     window radius th * scale_factor^octave_last."""
-    dev = curr.uv.device
-    scales = torch.from_numpy(scale_factors(n_levels, scale_factor)).to(dev)
+    scales = scale_table(n_levels, scale_factor, curr.uv.device)
     proj = project_sources(cam, T_cw_pred, last_landmarks_w, last_lm_valid)
     T_rel = T_cw_pred @ inv_T(T_cw_last)
     tz = T_rel[2, 3]
@@ -300,8 +300,7 @@ def match_local_points(
 
     Returns (assign (N,) map-point row per current keypoint or -1,
     dist (N,))."""
-    dev = mp_pos.device
-    scales = torch.from_numpy(scale_factors(n_levels, scale_factor)).to(dev)
+    scales = scale_table(n_levels, scale_factor, mp_pos.device)
     proj = project_sources(cam, T_cw, mp_pos, mp_valid)
     cam_center = -T_cw[:3, :3].T @ T_cw[:3, 3]
     po = mp_pos - cam_center[None]
@@ -324,3 +323,47 @@ def match_local_points(
     )
     row_ok = (b1 <= max_dist) & (b1.to(torch.float32) < ratio * b2.to(torch.float32))
     return _resolve_columns(idx, b1, row_ok, curr.valid.shape[0])
+
+
+def match_fuse_points(
+    cam: CameraIntrinsics,
+    target: FrameFeatures,
+    T_cw: torch.Tensor,
+    mp_pos: torch.Tensor,
+    mp_desc: torch.Tensor,
+    mp_normal: torch.Tensor,
+    mp_max_dist: torch.Tensor,
+    mp_min_dist: torch.Tensor,
+    mp_valid: torch.Tensor,
+    n_levels: int = 8,
+    scale_factor: float = 1.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Loop fusion's candidate search for one target keyframe
+    (fuseBySim3, src/orbMatcher.cpp:746-807), the JAX package's
+    ``_fuse_match_into_kf``: points projected with the target's
+    (corrected) pose, in front and in the image, distance in the
+    [0.8 min, 1.2 max] band, view cos >= 0.5, a 4 * scale^pred window,
+    octaves [pred - 1, pred], best Hamming distance <= TH_LOW, no ratio
+    test and no rotation check.  One K2 launch; the assignments equal
+    those of the JAX package's dense ``search_by_projection``.
+
+    Returns (assign (N,) point row per target keypoint or -1, dist (N,))."""
+    scales = scale_table(n_levels, scale_factor, mp_pos.device)
+    proj = project_sources(cam, T_cw, mp_pos, mp_valid)
+    cam_center = -T_cw[:3, :3].T @ T_cw[:3, 3]
+    po = mp_pos - cam_center[None]
+    dist = torch.linalg.norm(po, dim=-1)
+    view_cos = torch.sum(po * mp_normal, dim=-1) / torch.clamp(
+        dist * torch.linalg.norm(mp_normal, dim=-1), min=1e-6
+    )
+    band_ok = (dist >= 0.8 * mp_min_dist) & (dist <= 1.2 * mp_max_dist)
+    ok = proj.valid & band_ok & (view_cos >= 0.5)
+    pred = predict_scale_level(dist, 1.2 * mp_max_dist, n_levels, scale_factor)
+    radius = 4.0 * scales[pred.to(torch.int64)]
+    attr_a = _pack_src_attr(
+        proj.uv[:, 0], proj.uv[:, 1], proj.ur, radius, radius, pred - 1, pred, ok,
+    )
+    (idx, b1, _), _ = proj_best2(
+        mp_desc, attr_a, target.desc, _pack_cur_attr(target), check_ur=False
+    )
+    return _resolve_columns(idx, b1, b1 <= TH_LOW, target.valid.shape[0])

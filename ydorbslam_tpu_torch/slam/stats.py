@@ -23,10 +23,18 @@ class RunStats:
     local_ba_runs: int = 0
     reloc_attempts: int = 0
     reloc_successes: int = 0
-    loop_candidates: int = 0
+    loop_candidates: int = 0  # candidate sets dispatched to verification
     loops_closed: int = 0
     global_ba_runs: int = 0
     resets: int = 0
+    # (query frame id, matched frame id, |t| of the Sim3 correction) per
+    # accepted loop.
+    loop_events: list = dataclasses.field(default_factory=list)
+    # Verification-gate failures by stage (bow / ransac / sim3 / guided).
+    loop_verify_fails: dict = dataclasses.field(default_factory=dict)
+    # New cross-loop essential-graph edges (loopConnections,
+    # loopClosing.cpp:311-325) per accepted loop.
+    loop_conn_edges: list = dataclasses.field(default_factory=list)
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)

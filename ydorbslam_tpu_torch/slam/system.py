@@ -25,9 +25,17 @@ through K2 that widens a near miss.  ``activate_localization_mode``
 freezes the map: no keyframe is made, and when the map leaves the view
 tracking goes on by visual odometry (``visual_odometry``).
 
-Not ported yet, and loud about it: loop closing
-(``enable_loop_closing=True`` with mapping raises, ROADMAP slice 11),
-stereo (slice 12) and the pipelined path (slice 14).
+With mapping and loop closing on (``enable_loop_closing=True``, the
+default), each keyframe after the second then goes to the loop closer
+(``slam/loop.py``): detection on every keyframe, verification one
+keyframe late against the staleness guard (a host copy of
+``kf_valid``/``kf_frame_id`` from the mapping snapshot), the correction
+with whole-group fusion, the essential graph, and a global BA advanced
+one chunk per keyframe and merged into the live map; ``shutdown()``
+verifies what is pending and finishes the global BA.
+
+Not ported yet, and loud about it: stereo (``track_stereo`` raises,
+ROADMAP slice 12) and the pipelined path (slice 14).
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from ..ops.scatter import scatter_add, scatter_max, scatter_set
 from ..ops.select import stable_topk
 from ..optim.pnp import ransac_pnp, ransac_pose_3d3d
 from ..optim.pose import PoseObservations, optimize_pose
+from .loop import LoopCloser
 from .map_state import MapState, empty_map, f32, insert_keyframe
 from .mapping import SNAP_CULL_CAP, mapping_step, snapshot_layout
 from .matchers import match_dense, match_local_points
@@ -165,11 +174,6 @@ class SlamSystem:
         enable_loop_closing: bool = True,
         device="cuda",
     ):
-        if enable_mapping and enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP.md Queue 1, slice 11); "
-                "pass enable_loop_closing=False"
-            )
         self.cfg = cfg
         self.sensor = sensor
         self.device = torch.device(device)
@@ -213,6 +217,9 @@ class SlamSystem:
         # RANSAC draws of relocalization (the JAX package's PRNGKey(7)).
         self._reloc_gen = torch.Generator("cpu").manual_seed(7)
         self.tracker = Tracker(self.cfg, device=self.device)
+        self.loop_closer = None
+        if self.enable_mapping and self.enable_loop_closing:
+            self.loop_closer = LoopCloser(self)
         if self.enable_mapping:
             self.tracker.local_map_hook = self._local_map_hook
             self.tracker.new_kf_hook = self._insert_keyframe
@@ -222,9 +229,10 @@ class SlamSystem:
         self.frames_since_kf = 0
         self.records: List[SystemRecord] = []
         self._frame_mpid = None  # (N,) map-point id per current-frame keypoint
-        # The host's copy of map.kf_valid, refreshed from each mapping
-        # snapshot (the map starts empty).
+        # The host's copies of map.kf_valid and map.kf_frame_id, refreshed
+        # from each mapping snapshot (the map starts empty).
         self._host_kf_valid = np.zeros(cap.max_keyframes, dtype=bool)
+        self._host_kf_frame_id = np.full(cap.max_keyframes, -1, dtype=np.int64)
 
     # ------------------------------------------------------------------
     # public API (mirrors src/system.hpp)
@@ -251,6 +259,12 @@ class SlamSystem:
         self.localization_only = False
         self.visual_odometry = False
 
+    def shutdown(self):
+        """Sequence end (system.cpp:176-191): verify any loop detection
+        still pending and run any global BA in flight to its end."""
+        if self.loop_closer is not None:
+            self.loop_closer.flush()
+
     def reset(self):
         """Clear map, retrieval index and tracker state (system.cpp:96-102,
         tracking.cpp:150-180).  The counters start a new epoch; only the
@@ -273,6 +287,8 @@ class SlamSystem:
         s = self.stats
         s.frames_total = len(self.records)
         s.frames_lost = sum(1 for r in self.records if r.lost)
+        if self.loop_closer is not None:
+            s.loops_closed = self.loop_closer.n_loops_closed
         d = s.as_dict()
         d["keyframes_live"] = int(self.map.kf_valid.sum())
         d["map_points_live"] = int(self.map.mp_valid.sum())
@@ -547,6 +563,7 @@ class SlamSystem:
             return v[a:b]
 
         self._host_kf_valid = seg("kf_valid") > 0.5
+        self._host_kf_frame_id = seg("kf_frame_id").astype(np.int64)
         culled_ids = seg("culled_ids").astype(np.int64)
         if (culled_ids >= 0).any():
             c2p = seg("culled_c2p").reshape(SNAP_CULL_CAP, 4, 4).astype(np.float64)
@@ -587,6 +604,7 @@ class SlamSystem:
             return None
         slot = int(free[0])
         self._host_kf_valid[slot] = True
+        self._host_kf_frame_id[slot] = self.frame_id
         return slot
 
     def _ba_caps(self):
@@ -655,3 +673,5 @@ class SlamSystem:
                 kf_cull_redundancy=mc.kf_cull_redundancy,
             )
             self._consume_snapshot(snap_vec)
+        if self.loop_closer is not None and self.n_keyframes > 2:
+            self.loop_closer.process(slot)

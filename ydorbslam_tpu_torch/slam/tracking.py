@@ -99,6 +99,13 @@ class Tracker:
         self.inv_sigma2_tab = torch.from_numpy(
             1.0 / level_sigma2(cfg.orb.n_levels, cfg.orb.scale_factor)
         ).to(self.device)
+        # The uint16 depth divisor, made once (a fill, not a copy from the
+        # host): a tensor divisor keeps a true float32 division on every
+        # device (CUDA turns division by a Python scalar into a
+        # multiplication by its reciprocal).
+        self.depth_factor = torch.full(
+            (), cfg.depth.depth_map_factor, dtype=torch.float32, device=self.device
+        )
         self.T_cw = torch.eye(4, device=self.device)
         self.velocity = torch.eye(4, device=self.device)
         self.new_T = self.T_cw
@@ -136,12 +143,7 @@ class Tracker:
         depth = np.asarray(depth)
         d = torch.as_tensor(depth).to(self.device).to(torch.float32)
         if depth.dtype == np.uint16:  # sensor-native TUM encoding
-            # A tensor divisor keeps this a true float32 division on every
-            # device (CUDA turns division by a Python scalar into a
-            # multiplication by its reciprocal).
-            d = d / torch.tensor(
-                self.cfg.depth.depth_map_factor, dtype=torch.float32, device=self.device
-            )
+            d = d / self.depth_factor
         feats = fill_depth_from_rgbd(feats, d, self.cam)
         return self._track(timestamp, feats)
 
