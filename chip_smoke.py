@@ -107,6 +107,26 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      (4096 x 1024) inputs, identical to plain, and K4 on the captured
      global-BA input (32, 16, 16384) within rtol 2e-4, atol 2e-3, each
      with device ms and its bound.
+ 14. the stereo path on the card: ``SlamSystem(kitti00_config,
+     Sensor.STEREO, enable_mapping=True, enable_loop_closing=False,
+     device="cuda")`` tracks ``testing.make_stereo_frames(60)`` (rectified
+     1241x376 pairs at the KITTI-00 camera, 2048 keypoint slots).  Gates:
+     0 lost; the TUM-file ATE under 0.08 m and within 1.5x of the JAX
+     package's CPU figure (``tools/jax_stereo_reference.py``); more than 2
+     keyframes; K1 launched exactly twice per frame, K2 at least twice
+     per frame after the first, K3 3x and K4 17x per local BA;
+     ``stereo_match`` waits on the card 0 times on every frame (CUDA's
+     sync debug mode); frame 0's ``stereo_match`` on the card against the
+     port on the CPU on the same inputs (the same ok mask on >= 99 % of
+     the keypoints, right_u within 1e-3 px where both are ok); the first
+     10 frames again on a CPU ``SlamSystem`` (the same lost pattern and
+     keyframes, camera centres within 1e-3 m); K1 on both images' last
+     levels, K2 and K3 on their last inputs of the run identical to plain,
+     K4 within rtol 2e-4, atol 2e-3, each with device ms and its bound.
+     It prints frames/s and the median ms/frame after 10 warm-up frames,
+     the synchronised ms of ``stereo_match`` and of the second
+     extraction, keypoints and stereo depths per frame, keyframes and
+     live points.
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -116,8 +136,9 @@ host enqueues the calls between the two events, so the events time the
 card's own work back to back.
 
 It prints one JSON line with every kernel's name, route, source, the
-TPU kernel it replaces, launches in the main path (phase 8) and in the
-loop path of phase 13 (``loop_launches``), max abs
+TPU kernel it replaces, launches in the main path (phase 8), in the
+loop path of phase 13 (``loop_launches``) and in the stereo path of
+phase 14 (``stereo_launches``), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
 levels, one launch) and that of the plain version, the bound on that
 input (the larger of its bytes over 3.35 TB/s and its operations over
@@ -188,6 +209,15 @@ LOOP_TOL_M, LOOP_TOL_RAD, LOOP_KF_TOL_M = 1e-4, 1e-4, 1e-3  # card against CPU l
 # bundle once.
 SYNC_MAX = {"poll": 1, "detect": 0, "verify": 3, "correct": 1, "chunk": 0, "merge": 0}
 SYNC_WARNING = "called a synchronizing CUDA operation"
+# Phase 14: the stereo workload (testing.make_stereo_frames) and the JAX
+# package's TUM-file ATE on it, synchronous stereo with mapping on and
+# loop closing off, on a CPU (tools/jax_stereo_reference.py).
+N_STEREO = 60
+N_STEREO_WARM = 10
+N_PAR_STEREO = 10  # CPU parity frames
+JAX_CPU_ATE_STEREO = 0.016306350048612923
+STEREO_ATE_MAX = 0.08  # the bound of tests/test_stereo_system.py
+STEREO_OK_SHARE, STEREO_UR_TOL = 0.99, 1e-3  # card against CPU on frame 0's stereo_match
 
 
 def _bound(nbytes, lane_ops, popc=0.0):
@@ -911,6 +941,252 @@ def _phase13(smi, report):
         report[k]["loop_launches"] = loop_launch.get(k, 0)
 
 
+def _phase14(smi, report):
+    """Phase 14: the stereo path on the card at the KITTI-00 configuration
+    over ``testing.make_stereo_frames(60)``, frame 0's stereo match and
+    the first frames again on the CPU, and K1-K4 on the stereo path's
+    captured inputs.  Fills ``report[k]["stereo_launches"]``; any gate
+    that fails raises."""
+    import numpy as np
+    import torch
+
+    from ydorbslam_tpu_torch import config as pconfig
+    from ydorbslam_tpu_torch.config import camera_intrinsics
+    from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
+    from ydorbslam_tpu_torch.ops import extractor, hamming, kernels
+    from ydorbslam_tpu_torch.ops.extractor import DETECT_BORDER
+    from ydorbslam_tpu_torch.ops.fast import fast_score_map, nms_and_border
+    from ydorbslam_tpu_torch.ops.stereo import stereo_match
+    from ydorbslam_tpu_torch.optim import lm_kernel, schur
+    from ydorbslam_tpu_torch.slam import matchers, tracking, triangulate
+    from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
+    from ydorbslam_tpu_torch.testing import device_ms, kitti00_config, make_stereo_frames
+
+    frames, gt_poses = make_stereo_frames(N_STEREO)
+    cfg = kitti00_config(pconfig)
+    gt = _centres(gt_poses)
+    captured = {"k1": []}
+    ms = {"stereo_match": [], "extract_right": []}
+    waits, sites, per_frame = [], {}, []
+    calls = {"extract": 0}
+
+    def quiet_sync():
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+    def keep_k1(levels, border):
+        captured["k1"] = (captured["k1"] + [tuple(levels)])[-2:]  # the last pair's images
+        return orig["k1"](levels, border)
+
+    def keep_k2(desc_a, attr_a, desc_b, attr_b, check_ur=False):
+        captured[("proj_best2", bool(check_ur), desc_a.shape[0])] = tuple(
+            t.clone() for t in (desc_a, attr_a, desc_b, attr_b))
+        return hamming.proj_best2(desc_a, attr_a, desc_b, attr_b, check_ur)
+
+    def keep_pairs(desc_a, attr_a, desc_b, attr_b, mode="proj"):
+        captured[mode] = (desc_a, attr_a, desc_b, attr_b)
+        return hamming.pair_best2(desc_a, attr_a, desc_b, attr_b, mode)
+
+    def keep_obs(inp):
+        captured["lm_obs"] = inp
+        return lm_kernel.lm_obs(inp)
+
+    def extract(*args, **kwargs):
+        """The right image's extraction (every second call), synchronised."""
+        calls["extract"] += 1
+        if calls["extract"] % 2:
+            return orig["extract"](*args, **kwargs)
+        quiet_sync()
+        t0 = time.perf_counter()
+        out = orig["extract"](*args, **kwargs)
+        quiet_sync()
+        ms["extract_right"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def match(fl, fr, pl, pr, *args):
+        """stereo_match, synchronised, with the host's waits on the card
+        inside it counted by CUDA's sync debug mode."""
+        quiet_sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = orig["match"](fl, fr, pl, pr, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        quiet_sync()
+        ms["stereo_match"].append((time.perf_counter() - t0) * 1e3)
+        found = [w for w in seen if SYNC_WARNING in str(w.message)]
+        waits.append(len(found))
+        for w in found:
+            site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        per_frame.append((fl.valid.sum(), (out.valid & (out.depth > 0)).sum()))
+        if "frame0" not in captured:
+            captured["frame0"] = (fl, fr, pl, pr, out)
+        return out
+
+    orig = {"k1": extractor.fast_score_nms_levels, "extract": tracking._extract_orb_pyramid,
+            "match": tracking.stereo_match}
+    patches = [(extractor, "fast_score_nms_levels", keep_k1), (matchers, "proj_best2", keep_k2),
+               (triangulate, "pair_best2", keep_pairs), (schur, "lm_obs", keep_obs),
+               (tracking, "_extract_orb_pyramid", extract), (tracking, "stereo_match", match)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    system = SlamSystem(cfg, Sensor.STEREO, enable_mapping=True, enable_loop_closing=False,
+                        device="cuda")
+    secs, kfs = [], []
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        kernels.reset_launch_counts()
+        for t, left, right in frames:
+            t0 = time.perf_counter()
+            system.track_stereo(t, left, right)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            kfs.append(system.n_keyframes)
+        launches = kernels.launch_counts()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    _, poses, lost = system.tracker.trajectory()
+    stats = system.run_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "CameraTrajectory.txt")
+        system.save_trajectory_tum(path)
+        ts, pos_tum, _ = read_tum_trajectory(path)
+    ate = ate_rmse(pos_tum, gt[[int(round(t * cfg.camera.fps)) for t in ts]])
+    n_lost, n_ba = sum(lost), stats["local_ba_runs"]
+    steady = secs[N_STEREO_WARM:]
+    kp = [int(a) for a, _ in per_frame]
+    dep = [int(b) for _, b in per_frame]
+
+    def spread(v):
+        return f"{float(np.median(v)):.3f} ({min(v):.3f}-{max(v):.3f}, {len(v)} calls)"
+
+    print(f"phase 14 stereo path (KITTI-00 configuration, {cfg.camera.width}x"
+          f"{cfg.camera.height}, {cfg.n_keypoints} keypoint slots, mapping on): {len(frames)} "
+          f"frames, lost {n_lost}, TUM rows {len(ts)}, ATE {ate:.6f} m (JAX on a CPU: "
+          f"{JAX_CPU_ATE_STEREO}), keyframes inserted {stats['keyframes_inserted']} culled "
+          f"{stats['keyframes_culled']} live {stats['keyframes_live']}, local BA runs {n_ba}, "
+          f"live map points {stats['map_points_live']}, launches {launches}, "
+          f"{len(steady) / sum(steady):.3f} frames/s, median "
+          f"{float(np.median(steady)) * 1e3:.3f} ms/frame after {N_STEREO_WARM} warm-up frames; "
+          f"synchronised ms: stereo_match {spread(ms['stereo_match'])}, second extraction "
+          f"{spread(ms['extract_right'])}; keypoints per frame {min(kp)}-{max(kp)} (median "
+          f"{int(np.median(kp))}), stereo depths per frame {min(dep)}-{max(dep)} (median "
+          f"{int(np.median(dep))}, frame 0 {dep[0]}); host waits in stereo_match per frame "
+          f"{min(waits)}-{max(waits)} (at {sites}) | {smi}", flush=True)
+    if not all(np.isfinite(p).all() and p.shape == (4, 4) for p in poses):
+        raise AssertionError("stereo path: non-finite or malformed pose")
+    if n_lost != 0 or len(ts) != len(frames) or not np.isfinite(pos_tum).all():
+        raise AssertionError(f"stereo path: lost {n_lost}, {len(ts)} TUM rows")
+    if not ate < STEREO_ATE_MAX or not ate <= 1.5 * JAX_CPU_ATE_STEREO:
+        raise AssertionError(f"stereo path: ATE {ate} (JAX on a CPU {JAX_CPU_ATE_STEREO})")
+    if stats["keyframes_inserted"] <= 2 or n_ba < 1:
+        raise AssertionError(f"stereo path: {stats['keyframes_inserted']} keyframes, {n_ba} BAs")
+    expect = dict(fast_score_nms=2 * len(frames), pair_best2=3 * n_ba, lm_obs=17 * n_ba)
+    if any(launches[k] != v for k, v in expect.items()) or \
+            launches["proj_best2"] < 2 * (len(frames) - 1):
+        raise AssertionError(f"stereo path launches {launches}, expected {expect} and "
+                             f">= {2 * (len(frames) - 1)} proj_best2")
+    if max(waits) != 0 or len(waits) != len(frames):
+        raise AssertionError(f"stereo_match waited on the card: {waits} at {sites}")
+
+    # Frame 0's pair: stereo_match on the card against the port on the CPU.
+    fl, fr, pl, pr, out = captured["frame0"]
+    ref = stereo_match(*(f._replace(**{k: v.cpu() for k, v in f._asdict().items()})
+                         for f in (fl, fr)),
+                       [x.cpu() for x in pl], [x.cpu() for x in pr],
+                       camera_intrinsics(cfg, "cpu"), cfg.orb.n_levels, cfg.orb.scale_factor)
+    valid = ref.valid.numpy()
+    ok_card, ok_cpu = out.depth.cpu().numpy() > 0, ref.depth.numpy() > 0
+    share = float(np.mean(ok_card[valid] == ok_cpu[valid]))
+    both = ok_card & ok_cpu
+    ur_err = float(np.abs(out.right_u.cpu().numpy()[both] - ref.right_u.numpy()[both]).max())
+
+    # The first frames again on the CPU.
+    cpu = SlamSystem(cfg, Sensor.STEREO, enable_mapping=True, enable_loop_closing=False,
+                     device="cpu")
+    t0 = time.perf_counter()
+    cpu_kfs = []
+    for f in frames[:N_PAR_STEREO]:
+        cpu.track_stereo(*f)
+        cpu_kfs.append(cpu.n_keyframes)
+    cpu_s = time.perf_counter() - t0
+    _, cpu_poses, cpu_lost = cpu.tracker.trajectory()
+    diff = float(np.abs(_centres(cpu_poses) - _centres(poses[:N_PAR_STEREO])).max())
+    print(f"phase 14 card against CPU: frame 0's stereo_match ok mask agrees on {share:.4%} of "
+          f"{int(valid.sum())} keypoints ({int(ok_card.sum())} ok on the card, "
+          f"{int(ok_cpu.sum())} on the CPU), right_u max {ur_err:.3e} px apart where both are "
+          f"ok; first {N_PAR_STEREO} frames: lost pattern "
+          f"{'identical' if cpu_lost == lost[:N_PAR_STEREO] else 'DIFFERENT'}, keyframes after "
+          f"each frame {'identical' if cpu_kfs == kfs[:N_PAR_STEREO] else 'DIFFERENT'} "
+          f"({cpu_kfs}), max camera-centre difference {diff:.3e} m; CPU {cpu_s:.1f} s", flush=True)
+    if not share >= STEREO_OK_SHARE or not ur_err <= STEREO_UR_TOL:
+        raise AssertionError(f"stereo_match card and CPU disagree: {share}, {ur_err} px")
+    if cpu_lost != lost[:N_PAR_STEREO] or cpu_kfs != kfs[:N_PAR_STEREO] or not diff < 1e-3:
+        raise AssertionError("CPU and CUDA stereo runs disagree")
+
+    # K1-K4 on the stereo path's captured inputs.
+    lines = []
+    err1 = 0.0
+    for side, lvls in zip(("left", "right"), captured["k1"]):
+        outs = kernels.fast_score_nms_levels_cuda(lvls, DETECT_BORDER)
+        for img, k in zip(lvls, outs):
+            if not torch.equal(k, nms_and_border(fast_score_map(img), DETECT_BORDER)):
+                raise AssertionError(f"K1 differs from plain on the {side} image at "
+                                     f"{tuple(img.shape)}")
+        _, _, px, bms, bby = _k1_work(lvls, DETECT_BORDER)
+        dev = device_ms(lambda: kernels.fast_score_nms_levels_cuda(lvls, DETECT_BORDER))
+        plain = device_ms(lambda: [nms_and_border(fast_score_map(x), DETECT_BORDER)
+                                   for x in lvls], calls=5, reps=5)
+        lines.append(f"K1 {side} image ({px} px, 8 levels, one launch): identical; device "
+                     f"{dev:.4f} ms; plain device {plain:.4f} ms; bound {bms:.5f} ms ({bby})")
+    for label, ur in (("motion", True), ("local map", False)):
+        prob = captured[max(k for k in captured if k[0] == "proj_best2" and k[1] == ur)]
+        _same_k2(prob, ur, f"stereo {label} search")
+        pairs, gated, bms, bby = _k2_work(prob, ur)
+        dev = device_ms(lambda: kernels.proj_best2_cuda(*prob, check_ur=ur))
+        plain = device_ms(lambda: hamming.proj_best2_plain(*prob, check_ur=ur), calls=5, reps=5)
+        lines.append(f"K2 {label} {prob[0].shape[0]}x{prob[2].shape[0]}: identical; {gated} of "
+                     f"{pairs} pairs gated; device {dev:.4f} ms; plain device {plain:.4f} ms; "
+                     f"bound {bms:.5f} ms ({bby})")
+    for mode in ("epi", "proj"):
+        prob = captured[mode]
+        _same_k3(prob, mode, f"stereo {mode}")
+        pairs, gated, bms, bby = _k3_work(prob, mode)
+        dev = device_ms(lambda: kernels.pair_best2_cuda(*prob, mode=mode))
+        plain = device_ms(lambda: hamming.pair_best2_plain(*prob, mode=mode), calls=5, reps=5)
+        lines.append(f"K3 {mode} {tuple(prob[0].shape[:2])}x{prob[2].shape[1]}: identical; "
+                     f"{gated} of {pairs} pairs gated; device {dev:.4f} ms; plain device "
+                     f"{plain:.4f} ms; bound {bms:.5f} ms ({bby})")
+    inp = captured["lm_obs"]
+    kq, kp4 = kernels.lm_obs_cuda(inp)
+    pq, pp4 = lm_kernel.lm_obs_plain(inp)
+    torch.cuda.synchronize()
+    err4 = 0.0
+    for a, b in ((kq, pq), (kp4, pp4)):
+        if a.shape != b.shape or not torch.isfinite(b).all():
+            raise AssertionError("K4 plain version malformed or not finite on the stereo input")
+        if ((a - b).abs() > K4_ATOL + K4_RTOL * b.abs()).any():
+            raise AssertionError("K4 differs from plain on the stereo local-BA input")
+        err4 = max(err4, float((a - b).abs().max()))
+    _, O4, P4 = inp.shape
+    bms, bby = _bound(((K4_ROWS_READ + lm_kernel.NOUT_Q) * O4 * P4 + lm_kernel.NOUT_P * P4) * 4,
+                      O4 * P4 * K4_OPS_OBS)
+    dev = device_ms(lambda: kernels.lm_obs_cuda(inp))
+    plain = device_ms(lambda: lm_kernel.lm_obs_plain(inp), calls=5, reps=5)
+    lines.append(f"K4 local BA {tuple(inp.shape)}: within rtol {K4_RTOL}, atol {K4_ATOL}, max "
+                 f"abs error {err4:.3e}; device {dev:.4f} ms; plain device {plain:.4f} ms; bound "
+                 f"{bms:.5f} ms ({bby})")
+    print("phase 14 kernels on the stereo path's inputs: " + " | ".join(lines) + f" | {smi}",
+          flush=True)
+    for k in report:
+        report[k]["stereo_launches"] = launches.get(k, 0)
+
+
 def main() -> int:
     import torch
 
@@ -1291,6 +1567,9 @@ def main() -> int:
     # 13. loop closing on the card, on the revisit workload.
     _phase13(smi, report)
 
+    # 14. the stereo path on the card, at the KITTI-00 configuration.
+    _phase14(smi, report)
+
     rows = []
     for k, src, rep in (
         ("fast_score_nms", "ydorbslam_tpu_torch/csrc/fast_nms.cu",
@@ -1307,7 +1586,8 @@ def main() -> int:
                          launches=r["launches"], max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None,
-                         loop_launches=r["loop_launches"]))
+                         loop_launches=r["loop_launches"],
+                         stereo_launches=r["stereo_launches"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -153,7 +153,8 @@ def test_cpu_mapping_run_launches_no_kernel(runs):
 
 
 def test_unported_paths_raise(frames, runs):
-    """Stereo tracking is refused loudly, naming its ROADMAP slice.  Loop
+    """Each sensor's call on a system of the other sensor raises
+    ``ValueError`` (the JAX package asserts the sensor).  Loop
     closing with mapping builds a ``LoopCloser`` (tests/test_torch_loop_*.py
     hold it against JAX); with mapping off loop closing has nothing to run
     on and none is built.  (Reaching LOST relocalizes:
@@ -170,8 +171,12 @@ def test_unported_paths_raise(frames, runs):
     assert off.loop_closer is None
     off.shutdown()  # nothing to flush
     _, fr = frames
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    with pytest.raises(ValueError, match="sensor mismatch"):
         runs["port"].track_stereo(fr[-1][0] + 1.0, fr[-1][1], fr[-1][1])
+    stereo = SlamSystem(port_cfg(), Sensor.STEREO, enable_mapping=True,
+                        enable_loop_closing=False, device="cpu")
+    with pytest.raises(ValueError, match="sensor mismatch"):
+        stereo.track_rgbd(*fr[0])
 
 
 def test_reset_clears_the_map(frames):

@@ -4,12 +4,14 @@ The JAX package beside this one is the reference; this package mirrors
 its module layout and names so each module's counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or ``ydorbslam_tpu``.
 
-What is ported so far is the synchronous RGB-D path with local mapping
-on or off (``slam.system.SlamSystem(..., enable_loop_closing=False)``):
-ORB extraction, RGB-D depth association, projection matching, pose-only
-LM, local-map tracking, keyframe insertion and local mapping with its
-bundle adjustment, relocalization after tracking is lost (retrieval
-index, RANSAC, pose LM) and the localization-only mode.  The four TPU kernels on that path have hand-written
+What is ported so far is the synchronous RGB-D and stereo paths with
+local mapping on or off and loop closing (``slam.system.SlamSystem``):
+ORB extraction, RGB-D depth association and stereo matching, projection
+matching, pose-only LM, local-map tracking, keyframe insertion and local
+mapping with its bundle adjustment, relocalization after tracking is
+lost (retrieval index, RANSAC, pose LM), the localization-only mode,
+loop closing with global BA, and the KITTI stereo runner
+(``python -m ydorbslam_tpu_torch.apps.run_kitti_stereo``).  The four TPU kernels on that path have hand-written
 CUDA counterparts for Hopper (``csrc/``); every kernel has a plain
 PyTorch version of the same contract that CPU tensors take.
 

@@ -4,3 +4,5 @@ from .trajectory import (  # noqa: F401
     associate_by_time,
     ate_rmse,
 )
+from .tum import load_image_gray  # noqa: F401
+from .kitti import KittiStereoDataset, kitti_intrinsics  # noqa: F401

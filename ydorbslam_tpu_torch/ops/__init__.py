@@ -15,10 +15,11 @@ from .descriptors import (  # noqa: F401
     brief_from_patches,
 )
 from .extractor import FrameFeatures, extract_orb  # noqa: F401
-from .stereo import fill_depth_from_rgbd  # noqa: F401
+from .stereo import fill_depth_from_rgbd, stereo_match  # noqa: F401
 from .hamming import (  # noqa: F401
     INVALID_DIST,
     distance_matrix,
+    masked_distance_matrix,
     proj_best2,
     proj_best2_plain,
     rotation_histogram_mask,

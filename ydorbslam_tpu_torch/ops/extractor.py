@@ -13,7 +13,7 @@ level by level (``ops.fast.fast_score_nms_levels``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +69,26 @@ def extract_orb(
 ) -> FrameFeatures:
     """(H, W) image (uint8 or float32) on the working device ->
     FrameFeatures with ``capacity`` rows on the same device."""
+    return _extract_orb_pyramid(
+        image, cam, n_features, capacity, n_levels, scale_factor, th_high, th_low,
+        has_distortion, subpixel,
+    )[0]
+
+
+def _extract_orb_pyramid(
+    image: torch.Tensor,
+    cam: CameraIntrinsics,
+    n_features: int,
+    capacity: int,
+    n_levels: int,
+    scale_factor: float,
+    th_high: int,
+    th_low: int,
+    has_distortion: bool,
+    subpixel: bool,
+) -> Tuple[FrameFeatures, Tuple[torch.Tensor, ...]]:
+    """``extract_orb`` that also returns the float32 pyramid it builds,
+    which the stereo match reads (the JAX package builds it twice)."""
     dev = image.device
     image = image.to(torch.float32)
     pyr = build_pyramid(image, n_levels, scale_factor)
@@ -125,7 +145,7 @@ def extract_orb(
     uv = undistort_points(cam, uv_raw) if has_distortion else uv_raw
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     minus_one = torch.full((capacity,), -1.0, dtype=torch.float32, device=dev)
-    return FrameFeatures(
+    feats = FrameFeatures(
         uv=torch.where(valid[:, None], uv, zero),
         uv_raw=torch.where(valid[:, None], uv_raw, zero),
         response=response,
@@ -136,3 +156,4 @@ def extract_orb(
         depth=minus_one.clone(),
         valid=valid,
     )
+    return feats, pyr

@@ -59,6 +59,22 @@ def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     return d.to(torch.int32)
 
 
+def masked_distance_matrix(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    valid_a: torch.Tensor,
+    valid_b: torch.Tensor,
+    pair_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``distance_matrix`` with invalid rows, columns and pairs set to
+    INVALID_DIST."""
+    d = distance_matrix(desc_a, desc_b)
+    mask = valid_a[:, None] & valid_b[None, :]
+    if pair_mask is not None:
+        mask = mask & pair_mask
+    return torch.where(mask, d, INVALID_DIST)
+
+
 def proj_gates(
     attr_a: torch.Tensor, attr_b: torch.Tensor, check_ur: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:

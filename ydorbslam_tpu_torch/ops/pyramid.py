@@ -104,10 +104,12 @@ def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:
 
 @functools.lru_cache()
 def scale_table(n_levels: int, scale_factor: float, device: torch.device) -> torch.Tensor:
-    """``scale_factors`` on ``device``, copied there once: an upload from
-    the host stalls the card, and the searches run per frame and per
-    loop verification."""
-    return torch.from_numpy(scale_factors(n_levels, scale_factor)).to(device)
+    """``scale_factors`` on ``device``, copied there once and from pinned
+    memory: an upload from pageable memory stalls the host, and the
+    searches and the stereo match run per frame and per loop
+    verification."""
+    t = torch.from_numpy(scale_factors(n_levels, scale_factor))
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
 
 
 def level_sigma2(n_levels: int, scale_factor: float) -> np.ndarray:

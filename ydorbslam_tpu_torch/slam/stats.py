@@ -4,7 +4,8 @@ Port of ``RunStats`` (``ydorbslam_tpu/slam/stats.py``): a plain host-side
 counter bag.  Every increment happens at a host decision point that
 already exists, so it adds no device traffic.  ``SlamSystem.run_stats()``
 merges these counters with values derived from the frame records and one
-read of the map's validity masks.
+read of the map's validity masks; ``format_stats`` prints them for the
+runners.
 """
 from __future__ import annotations
 
@@ -45,3 +46,33 @@ class RunStats:
             1.0 - self.frames_lost / self.frames_total if self.frames_total else 0.0
         )
         return d
+
+
+def format_stats(d: dict) -> str:
+    """One human block for app epilogues (analog of the reference test
+    driver's summary prints, test/src/test.cpp:98-110)."""
+    lines = [
+        f"frames        {d['frames_total']}  "
+        f"(lost {d['frames_lost']}, track rate {d['track_rate']:.3f})",
+        f"mean inliers  {d['mean_inliers']:.1f}",
+        f"keyframes     +{d['keyframes_inserted']} / -{d['keyframes_culled']} culled"
+        f"  (live {d.get('keyframes_live', '?')})"
+        + (
+            f"  [{d['keyframes_dropped_capacity']} DROPPED: capacity]"
+            if d.get("keyframes_dropped_capacity") else ""
+        ),
+        f"map points    live {d.get('map_points_live', '?')}",
+        f"local BA      {d['local_ba_runs']} runs",
+        f"reloc         {d['reloc_successes']}/{d['reloc_attempts']} succeeded",
+        f"loops         {d['loops_closed']} closed"
+        f" ({d['loop_candidates']} candidate sets verified),"
+        f" global BA {d['global_ba_runs']}",
+        f"resets        {d['resets']}",
+    ]
+    conn = d.get("loop_conn_edges", [])
+    for i, (q, m, t) in enumerate(d.get("loop_events", [])):
+        edges = f", {conn[i]} cross-loop edges" if i < len(conn) else ""
+        lines.append(f"  loop: frame {q} -> frame {m}  |t| = {t:.3f} m{edges}")
+    if d.get("loop_verify_fails"):
+        lines.append(f"  loop verify fails: {d['loop_verify_fails']}")
+    return "\n".join(lines)

@@ -1,9 +1,12 @@
 """System facade: the SLAM pipeline behind the reference's API.
 
-Port of the synchronous RGB-D path of ``ydorbslam_tpu/slam/system.py``:
-``SlamSystem(cfg, Sensor.RGBD, enable_mapping=..., enable_loop_closing=False,
+Port of the synchronous path of ``ydorbslam_tpu/slam/system.py``:
+``SlamSystem(cfg, Sensor.RGBD, enable_mapping=..., enable_loop_closing=...,
 device=...)`` routes every ``track_rgbd`` frame through
-``Tracker.track_rgbd`` and keeps the per-frame records.  With mapping on
+``Tracker.track_rgbd``, and ``SlamSystem(cfg, Sensor.STEREO, ...)`` every
+``track_stereo`` pair through ``Tracker.track_stereo`` (two extractions
+and ``ops.stereo.stereo_match``); both keep the per-frame records, and
+each raises ``ValueError`` on the other sensor's call.  With mapping on
 (the default), a tracked frame is also matched against the local map
 (``_local_map_hook``: tracking set, ``match_local_points`` through K2,
 pose LM), the keyframe decision runs, and a new keyframe is inserted
@@ -34,8 +37,9 @@ with whole-group fusion, the essential graph, and a global BA advanced
 one chunk per keyframe and merged into the live map; ``shutdown()``
 verifies what is pending and finishes the global BA.
 
-Not ported yet, and loud about it: stereo (``track_stereo`` raises,
-ROADMAP slice 12) and the pipelined path (slice 14).
+Not ported yet: the pipelined path (ROADMAP slice 14), checkpoints,
+``update_calibration``, ``tracked_keypoints``, ``map_changed_index`` and
+the viewer.
 """
 from __future__ import annotations
 
@@ -162,9 +166,9 @@ class SystemRecord:
 
 
 class SlamSystem:
-    """End-to-end RGB-D SLAM on ``device`` (the card unless the caller
-    asks for another): tracking, and with mapping on the synchronous
-    local mapping after every keyframe."""
+    """End-to-end RGB-D or stereo SLAM on ``device`` (the card unless the
+    caller asks for another): tracking, and with mapping on the
+    synchronous local mapping after every keyframe."""
 
     def __init__(
         self,
@@ -246,7 +250,12 @@ class SlamSystem:
         return ok
 
     def track_stereo(self, timestamp, gray_l, gray_r) -> bool:
-        return self.tracker.track_stereo(timestamp, gray_l, gray_r)
+        if self.sensor != Sensor.STEREO:
+            raise ValueError("sensor mismatch: track_stereo on a non-stereo system")
+        ok = self.tracker.track_stereo(timestamp, gray_l, gray_r)
+        self._record(timestamp, ok)
+        self.frame_id += 1
+        return ok
 
     def activate_localization_mode(self):
         """Pause mapping; keep tracking (system.cpp:80-87).  Tracking

@@ -32,9 +32,9 @@ import torch
 
 from ..config import SlamConfig, camera_intrinsics
 from ..geometry.camera import backproject
-from ..ops.extractor import FrameFeatures, extract_orb
+from ..ops.extractor import FrameFeatures, _extract_orb_pyramid, extract_orb
 from ..ops.pyramid import level_sigma2
-from ..ops.stereo import fill_depth_from_rgbd
+from ..ops.stereo import fill_depth_from_rgbd, stereo_match
 from ..optim.pose import PoseObservations, optimize_pose
 from .matchers import match_dense, match_motion_model_two
 
@@ -85,7 +85,7 @@ def _pose_obs_from_assign(
 
 
 class Tracker:
-    """Frame-to-frame RGB-D tracker: motion-model projection matching
+    """Frame-to-frame RGB-D or stereo tracker: motion-model projection matching
     against the last frame's landmarks + pose-only LM, with the
     appearance-only fallback; local-map tracking and keyframe creation
     plug in through the hooks.  All state lives on ``device``, the card
@@ -123,18 +123,22 @@ class Tracker:
         self.frames_since_reloc = 1 << 20
 
     # -- per-sensor frame ingestion ------------------------------------
-    def _extract(self, gray: np.ndarray) -> FrameFeatures:
+    def _extract_kw(self) -> dict:
         o = self.cfg.orb
         c = self.cfg.camera
-        has_dist = any(abs(k) > 0 for k in (c.k1, c.k2, c.p1, c.p2, c.k3))
-        return extract_orb(
-            torch.as_tensor(np.asarray(gray)).to(self.device), self.cam,
+        return dict(
             n_features=o.n_features, capacity=self.cfg.n_keypoints,
             n_levels=o.n_levels, scale_factor=o.scale_factor,
             th_high=o.ini_th_fast, th_low=o.min_th_fast,
             subpixel=o.subpixel,
-            has_distortion=has_dist,
+            has_distortion=any(abs(k) > 0 for k in (c.k1, c.k2, c.p1, c.p2, c.k3)),
         )
+
+    def _image(self, gray: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(gray)).to(self.device)
+
+    def _extract(self, gray: np.ndarray) -> FrameFeatures:
+        return extract_orb(self._image(gray), self.cam, **self._extract_kw())
 
     def track_rgbd(self, timestamp: float, gray: np.ndarray, depth: np.ndarray):
         """System::trackRGBD -> Tracking::grabImageRGBD: uint8 gray and a
@@ -147,11 +151,15 @@ class Tracker:
         feats = fill_depth_from_rgbd(feats, d, self.cam)
         return self._track(timestamp, feats)
 
-    def track_stereo(self, timestamp, gray_l, gray_r):
-        raise NotImplementedError(
-            "stereo tracking belongs to the stereo slice (ROADMAP.md Queue 1, "
-            "slice 12: ops/stereo.stereo_match and Tracker.track_stereo)"
-        )
+    def track_stereo(self, timestamp: float, gray_l: np.ndarray, gray_r: np.ndarray):
+        """System::trackStereo: a rectified uint8 pair, extracted one image
+        after the other (K1 twice), then ``stereo_match`` on the
+        pyramids the extraction built (src/frame.cpp:60-105)."""
+        kw = self._extract_kw()
+        fl, pl = _extract_orb_pyramid(self._image(gray_l), self.cam, **kw)
+        fr, pr = _extract_orb_pyramid(self._image(gray_r), self.cam, **kw)
+        fl = stereo_match(fl, fr, pl, pr, self.cam, kw["n_levels"], kw["scale_factor"])
+        return self._track(timestamp, fl)
 
     # -- core ----------------------------------------------------------
     def _initialize(self, timestamp: float, feats: FrameFeatures) -> bool:

@@ -6,7 +6,8 @@ which ``tests/test_torch_best2_merge.py`` feeds to the plain versions on
 the CPU and ``chip_smoke.py`` and ``tools/time_kernels.py`` to the
 kernels on the card; ``lm_obs_problem`` makes a seeded K4 input for the
 last two.  ``wall_ms`` and ``device_ms`` time a call on the card with
-and without the host's dispatch.
+and without the host's dispatch.  ``make_stereo_frames`` renders the
+stereo workload: a rectified pair sequence at the KITTI-00 camera.
 
 This module imports only numpy and torch, nothing else of the package,
 so ``tools/time_kernels.py`` can load it by path beside another
@@ -14,10 +15,32 @@ checkout's package.
 """
 from __future__ import annotations
 
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+
+# ORB-SLAM2's Examples/Stereo/KITTI00-02.yaml: the rectified KITTI 00-02
+# camera (1241x376, fx = fy = 718.856, bf = 386.1448, i.e. a 0.537 m
+# baseline), ThDepth 35, 10 fps, 2000 features on 8 levels at 1.2, FAST
+# thresholds 20 and 7, no distortion.
+KITTI00 = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
+               width=1241, height=376, fps=10.0, th_depth=35.0, n_features=2000,
+               n_levels=8, scale_factor=1.2, ini_th_fast=20, min_th_fast=7)
+# Landmarks of the stereo workload, chosen once: 1000 textured dots of
+# 13x13 px, so that frame 0 of the left camera extracts 1992 keypoints of
+# the 2048 slots and 1332 of them get a stereo depth, and the map keeps
+# making keyframes under the bounded "xyz" motion (the JAX package on a
+# CPU: 25 over 60 frames).  With the RGB-D workload's 3x3 dots (3000 of
+# them for 1800 keypoints) the descriptors of different dots hardly
+# differ, a quarter to a half of the stereo matches take another dot of
+# the row, and the near points they make hold the second frame's pose
+# at zero motion (JAX: TUM ATE 0.173 m over 60 frames); 350 dots of 17
+# px track well but make one keyframe in 60 frames.
+STEREO_LANDMARKS = 1000
+STEREO_DOT = 13  # px side of a rendered landmark
 
 
 def proj_problem(rng, M, N, kind="random"):
@@ -215,3 +238,56 @@ def device_ms(fn, calls=20, reps=11, warm=3):
         times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
+
+
+def kitti00_config(m):
+    """The KITTI-00 ``SlamConfig`` of the stereo workload, built from the
+    config module ``m`` of either package (so this module imports neither):
+    ``KITTI00``'s camera and extractor, ThDepth 35, the reference's
+    ``min_init_depth_points`` of 500 and 160 keyframe slots, every other
+    capacity at its default."""
+    c = KITTI00
+    return m.SlamConfig(
+        camera=m.CameraConfig(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], bf=c["bf"],
+                              width=c["width"], height=c["height"], fps=c["fps"]),
+        orb=m.OrbConfig(n_features=c["n_features"], n_levels=c["n_levels"],
+                        scale_factor=c["scale_factor"], ini_th_fast=c["ini_th_fast"],
+                        min_th_fast=c["min_th_fast"]),
+        depth=m.DepthConfig(th_depth=c["th_depth"]),
+        tracking=m.TrackingConfig(min_init_depth_points=500),
+        capacity=m.CapacityConfig(max_keyframes=160),
+    )
+
+
+def make_stereo_frames(n_frames=60, seed=0):
+    """The stereo workload: ``n_frames`` rectified (timestamp, left,
+    right) uint8 pairs at the KITTI-00 camera (``KITTI00``) of the
+    ``STEREO_LANDMARKS`` textured dots (``STEREO_DOT`` px) of
+    ``tests/synthetic.py``, seen along its "xyz" hand-held oscillation
+    (``SyntheticRgbdSequence`` with ``trajectory="xyz"``), and the
+    ground-truth T_cw of each frame.  The right camera sits bf/fx to the
+    right of the left one along camera x, as in
+    ``tests/test_stereo_system.py``.  numpy only; ``tests/`` goes on
+    ``sys.path`` as ``bench.make_frames`` puts it there."""
+    tests = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from synthetic import SyntheticRgbdSequence, project_np, render_dots
+
+    c = KITTI00
+    seq = SyntheticRgbdSequence(
+        np.random.default_rng(seed), n_frames=n_frames, n_landmarks=STEREO_LANDMARKS,
+        width=c["width"], height=c["height"], fx=c["fx"], fy=c["fy"], cx=c["cx"],
+        cy=c["cy"], trajectory="xyz",
+    )
+    baseline = c["bf"] / c["fx"]
+    frames = []
+    for i, T in enumerate(seq.poses):
+        T_r = T.copy()
+        T_r[0, 3] -= baseline  # x_cam_right = x_cam_left - b
+        pair = []
+        for pose in (T, T_r):
+            uv, z = project_np(seq.K, pose, seq.landmarks)
+            pair.append(render_dots(uv, z, seq.width, seq.height, dot=STEREO_DOT).astype(np.uint8))
+        frames.append((i / c["fps"], pair[0], pair[1]))
+    return frames, seq.poses
