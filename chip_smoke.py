@@ -128,6 +128,37 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      extraction, keypoints and stereo depths per frame, keyframes and
      live points.
 
+ 15. the TUM runner at its default configuration: ``bench.make_frames()``
+     is written to a temporary TUM directory (``testing.write_tum_sequence``:
+     8-bit gray and 16-bit depth PNGs, assoc.txt, groundtruth.txt and a
+     settings file of the rendering camera with TUM1.yaml's ORB and depth
+     settings), and ``run_tum_rgbd.main`` runs on it in this process with
+     ``--groundtruth``, ``--viz`` and ``--viewer-dir`` every 30 frames, at
+     ``load_config``'s capacities (512 keyframe and 65,536 map-point
+     slots, 32 observations per point) with loop closing on.  Gates: 0
+     lost; the TUM-file ATE under 0.02 m and within 1.5x of the JAX
+     package's own runner on the same directory on a CPU
+     (``tools/jax_tum_reference.py``); keyframes inserted within
+     ``TUM_KF_BAND`` of JAX's; the loops closed equal to JAX's; K1 launched
+     exactly once per frame, K2 at least twice per frame after the first,
+     K3 3x and K4 17x per local BA; the viewer's frame and map PNGs of
+     frames 0, 30, 60 and 90 open, and ``maybe_draw`` waits on the card 0
+     times on every frame it does not draw (CUDA's sync debug mode).  It
+     prints frames/s and the median ms/frame after 20 warm-up frames, the
+     synchronised ms per ``mapping_step`` at these capacities, the ms of
+     each drawn frame and the peak memory.  Then a card system tracks
+     frames 0-59, is saved with ``serialize.save_system``, loaded on the
+     card and goes on with frames 60-119: the same keyframe and record
+     counts after the load, the host's slot mask rebuilt, every map array
+     bit-equal between the saved system, the card load and a CPU load of
+     the same file, 0 lost, the ATE below max(2x the runner's, 0.03 m),
+     every camera centre within 1e-3 m of the runner's run; it prints the
+     file's size, the save and load ms and that largest difference.  Last,
+     ``update_calibration`` with a settings file of fx 501 on a card
+     system loaded from the same file: the new camera on the card in the
+     system and the tracker, ``tracker.cfg`` unchanged, the next frame
+     tracked.
+
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
 host's dispatch of each call is part of it.  "device" (``device_ms``)
@@ -137,8 +168,9 @@ card's own work back to back.
 
 It prints one JSON line with every kernel's name, route, source, the
 TPU kernel it replaces, launches in the main path (phase 8), in the
-loop path of phase 13 (``loop_launches``) and in the stereo path of
-phase 14 (``stereo_launches``), max abs
+loop path of phase 13 (``loop_launches``), in the stereo path of
+phase 14 (``stereo_launches``) and in the TUM runner's run of phase 15
+(``tum_launches``), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
 levels, one launch) and that of the plain version, the bound on that
 input (the larger of its bytes over 3.35 TB/s and its operations over
@@ -218,6 +250,20 @@ N_PAR_STEREO = 10  # CPU parity frames
 JAX_CPU_ATE_STEREO = 0.016306350048612923
 STEREO_ATE_MAX = 0.08  # the bound of tests/test_stereo_system.py
 STEREO_OK_SHARE, STEREO_UR_TOL = 0.99, 1e-3  # card against CPU on frame 0's stereo_match
+# Phase 15: the TUM runner at load_config's defaults (512 keyframe and
+# 65,536 map-point slots, 32 observations per point, loop closing on) on
+# bench.make_frames() written as a TUM directory, and the JAX package's
+# figures from its own runner on the same directory on a CPU
+# (tools/jax_tum_reference.py): the ATE, keyframes inserted, loops closed.
+JAX_CPU_ATE_TUM = 0.0018624403744987028
+JAX_CPU_KF_TUM = 19
+JAX_CPU_LOOPS_TUM = 0
+TUM_KF_BAND = 4  # keyframes inserted within JAX's count +- this: float sums move decisions (F1)
+TUM_EVERY = 30  # the viewer's cadence
+N_TUM_SAVE = 60  # frames tracked before the checkpoint
+RESUME_ATE_MIN = 0.03  # m: tests/test_serialize_viz.py's resume bound, max(2x, this)
+RESUME_CENTRE_MAX = 1e-3  # m: resumed camera centres against the uninterrupted run's
+TUM_CALIB_FX = 501.0  # fx of the settings file of the re-calibration
 
 
 def _bound(nbytes, lane_ops, popc=0.0):
@@ -1187,6 +1233,236 @@ def _phase14(smi, report):
         report[k]["stereo_launches"] = launches.get(k, 0)
 
 
+def _phase15(smi, report):
+    """Phase 15: the TUM runner at its default configuration on the card,
+    with the viewer; a checkpoint saved on the card, resumed on the card
+    and loaded on the CPU; ``update_calibration`` on the card.  Fills
+    ``report[k]["tum_launches"]``; any gate that fails raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import bench
+    from ydorbslam_tpu_torch.apps import run_tum_rgbd
+    from ydorbslam_tpu_torch.config import load_config
+    from ydorbslam_tpu_torch.convert import map_state_to_numpy
+    from ydorbslam_tpu_torch.io import TumRgbdDataset, read_tum_trajectory
+    from ydorbslam_tpu_torch.io.trajectory import ate_against_groundtruth
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.slam import serialize, system as system_mod
+    from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
+    from ydorbslam_tpu_torch.testing import TUM_RGBD_SETTINGS, write_settings, write_tum_sequence
+    from ydorbslam_tpu_torch.viz.headless import PeriodicViewer
+
+    frames = bench.make_frames()
+    from synthetic import oscillating_trajectory  # bench put tests/ on sys.path
+
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "seq")
+    yaml, assoc, gt = write_tum_sequence(root, frames, oscillating_trajectory(len(frames)),
+                                         TUM_RGBD_SETTINGS)
+    out = {k: os.path.join(tmp.name, f) for k, f in (
+        ("traj", "CameraTrajectory.txt"), ("kf", "KeyFrameTrajectory.txt"),
+        ("viz", "map.png"), ("viewer", "viewer"), ("ckpt", "checkpoint.npz"),
+        ("resumed", "resumed.txt"), ("calib", "calib.yaml"))}
+
+    # The runner, as a user calls it, with every frame and mapping_step
+    # timed to its end on the card and the viewer's undrawn frames run
+    # under CUDA's sync debug mode.
+    secs, step_ms, draw_ms, waits, sites = [], [], [], [], {}
+    orig = {"track": SlamSystem.track_rgbd, "draw": PeriodicViewer.maybe_draw,
+            "step": system_mod.mapping_step}
+
+    def track(self, *args):
+        t0 = time.perf_counter()
+        ok = orig["track"](self, *args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return ok
+
+    def step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig["step"](*args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def draw(self, system, frame_id, gray=None):
+        if frame_id % self.every == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drawn = orig["draw"](self, system, frame_id, gray)
+            draw_ms.append((time.perf_counter() - t0) * 1e3)
+            return drawn
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                drawn = orig["draw"](self, system, frame_id, gray)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        found = [w for w in seen if SYNC_WARNING in str(w.message)]
+        waits.append(len(found))
+        for w in found:
+            site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        return drawn
+
+    args = [yaml, root, assoc, "--groundtruth", gt, "--out-trajectory", out["traj"],
+            "--out-kf-trajectory", out["kf"], "--viz", out["viz"],
+            "--viewer-dir", out["viewer"], "--viewer-every", str(TUM_EVERY)]
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    try:
+        SlamSystem.track_rgbd = track
+        PeriodicViewer.maybe_draw = draw
+        system_mod.mapping_step = step
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(text):
+            system = run_tum_rgbd.main(args)
+        launches = kernels.launch_counts()
+    finally:
+        SlamSystem.track_rgbd = orig["track"]
+        PeriodicViewer.maybe_draw = orig["draw"]
+        system_mod.mapping_step = orig["step"]
+    run_s = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    cfg = system.cfg
+    stats = system.run_stats()
+    ate, _ = ate_against_groundtruth(out["traj"], gt)
+    t_run_traj, p_run, _ = read_tum_trajectory(out["traj"])
+    steady = secs[N_WARM:]
+    n_ba = stats["local_ba_runs"]
+    drawn = [i for i in range(0, len(frames), TUM_EVERY)]
+    expect_files = sorted([f"frame_{i:06d}.png" for i in drawn]
+                          + [f"map_{i:06d}.png" for i in drawn])
+    files = sorted(os.listdir(out["viewer"]))
+    for f in files + [out["viz"]]:
+        with Image.open(os.path.join(out["viewer"], f)) as img:
+            img.load()
+    print("phase 15 runner output: " + " | ".join(
+        line.strip() for line in text.getvalue().splitlines() if line.strip()), flush=True)
+    print(f"phase 15 TUM runner (python -m ydorbslam_tpu_torch.apps.run_tum_rgbd, capacities "
+          f"K={cfg.capacity.max_keyframes} M={cfg.capacity.max_map_points} "
+          f"O={cfg.capacity.max_obs_per_point}, min_init_depth_points "
+          f"{cfg.tracking.min_init_depth_points}, loop closing "
+          f"{'on' if system.loop_closer is not None else 'OFF'}): {stats['frames_total']} frames, "
+          f"lost {stats['frames_lost']}, ATE {ate:.6f} m (JAX on a CPU: {JAX_CPU_ATE_TUM}), "
+          f"keyframes inserted {stats['keyframes_inserted']} (JAX {JAX_CPU_KF_TUM}) culled "
+          f"{stats['keyframes_culled']} live {stats['keyframes_live']}, local BA runs {n_ba}, "
+          f"live map points {stats['map_points_live']}, loops closed {stats['loops_closed']} "
+          f"(JAX {JAX_CPU_LOOPS_TUM}), global BA {stats['global_ba_runs']}, launches {launches}, "
+          f"{len(steady) / sum(steady):.3f} frames/s, median "
+          f"{float(np.median(steady)) * 1e3:.3f} ms/frame after {N_WARM} warm-up frames, "
+          f"mapping_step median {float(np.median(step_ms)) if step_ms else float('nan'):.3f} ms "
+          f"(min {min(step_ms, default=float('nan')):.3f}, max "
+          f"{max(step_ms, default=float('nan')):.3f}, {len(step_ms)} calls), peak memory "
+          f"{peak:.1f} MiB, run {run_s:.1f} s; viewer: {files}, drawn frames "
+          f"{[round(v, 3) for v in draw_ms]} ms, host waits on undrawn frames "
+          f"{min(waits, default=-1)}-{max(waits, default=-1)} over {len(waits)} calls (at {sites}) "
+          f"| {smi}", flush=True)
+    if stats["frames_total"] != len(frames) or stats["frames_lost"] != 0 or \
+            len(t_run_traj) != len(frames) or not np.isfinite(p_run).all():
+        raise AssertionError(f"TUM runner: {stats['frames_lost']} lost of {stats['frames_total']}")
+    if cfg.capacity.max_keyframes != 512 or cfg.capacity.max_map_points != 65536 or \
+            system.loop_closer is None:
+        raise AssertionError("TUM runner: not at its default configuration")
+    if not ate < 0.02 or not ate <= 1.5 * JAX_CPU_ATE_TUM:
+        raise AssertionError(f"TUM runner: ATE {ate} (JAX on a CPU {JAX_CPU_ATE_TUM})")
+    if abs(stats["keyframes_inserted"] - JAX_CPU_KF_TUM) > TUM_KF_BAND:
+        raise AssertionError(f"TUM runner: {stats['keyframes_inserted']} keyframes, JAX "
+                             f"{JAX_CPU_KF_TUM} +- {TUM_KF_BAND}")
+    if stats["loops_closed"] != JAX_CPU_LOOPS_TUM or n_ba != len(step_ms) or n_ba < 1:
+        raise AssertionError(f"TUM runner: {stats['loops_closed']} loops, {n_ba} BAs")
+    expect = dict(fast_score_nms=len(frames), pair_best2=3 * n_ba, lm_obs=17 * n_ba)
+    if any(launches[k] != v for k, v in expect.items()) or \
+            launches["proj_best2"] < 2 * (len(frames) - 1):
+        raise AssertionError(f"TUM runner launches {launches}, expected {expect} and "
+                             f">= {2 * (len(frames) - 1)} proj_best2")
+    if files != expect_files or len(draw_ms) != len(drawn) or \
+            len(waits) != len(frames) - len(drawn) or max(waits) != 0:
+        raise AssertionError(f"viewer: files {files}, drawn {len(draw_ms)}, waits {waits}")
+    for k in report:
+        report[k]["tum_launches"] = launches.get(k, 0)
+    del system
+
+    # A checkpoint on the card: frames 0-59, save, load on the card, go on
+    # with frames 60-119; the same file loaded on the CPU.
+    cfg = load_config(yaml)
+    ds = TumRgbdDataset(root, assoc, cfg.depth.depth_map_factor, is_rgb=cfg.camera.is_rgb)
+    card = SlamSystem(cfg, Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+                      device="cuda")
+    for i in range(N_TUM_SAVE):
+        card.track_rgbd(*ds[i])
+        if i == 0:
+            f0 = card.tracker.last_feats
+            kp0 = (int(f0.valid.sum()), int((f0.valid & (f0.depth > 0)).sum()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serialize.save_system(card, out["ckpt"])
+    save_ms = (time.perf_counter() - t0) * 1e3
+    saved = dict(n_keyframes=card.n_keyframes, records=len(card.records),
+                 map=map_state_to_numpy(card.map))
+    del card
+    t0 = time.perf_counter()
+    resumed = serialize.load_system(out["ckpt"], cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    on_cpu = serialize.load_system(out["ckpt"], cfg, device="cpu")
+    cpu_load_ms = (time.perf_counter() - t0) * 1e3
+    loaded = map_state_to_numpy(resumed.map)
+    same = [k for k, v in loaded.items()
+            if v.dtype == saved["map"][k].dtype and np.array_equal(v, saved["map"][k])
+            and np.array_equal(map_state_to_numpy(on_cpu.map)[k], v)]
+    counts = (resumed.n_keyframes, len(resumed.records))
+    host_ok = np.array_equal(resumed._host_kf_valid, loaded["kf_valid"])
+    oks = [bool(resumed.track_rgbd(*ds[i])) for i in range(N_TUM_SAVE, len(ds))]
+    resumed.shutdown()
+    resumed.save_trajectory_tum(out["resumed"])
+    ate_res, _ = ate_against_groundtruth(out["resumed"], gt)
+    t_res, p_res, _ = read_tum_trajectory(out["resumed"])
+    diff = float(np.abs(p_res - p_run).max()) if np.array_equal(t_res, t_run_traj) else float("inf")
+    print(f"phase 15 checkpoint on the card: frame 0 has {kp0[0]} keypoints, {kp0[1]} with a "
+          f"depth; frames 0-{N_TUM_SAVE - 1} saved "
+          f"({os.path.getsize(out['ckpt'])} bytes, save {save_ms:.1f} ms, load on the card "
+          f"{load_ms:.1f} ms, on the CPU {cpu_load_ms:.1f} ms), keyframes / records after load "
+          f"{counts} (saved {(saved['n_keyframes'], saved['records'])}), map arrays bit-equal "
+          f"(saved, loaded on the card, loaded on the CPU) {len(same)} of {len(loaded)}, host slot "
+          f"mask {'rebuilt' if host_ok else 'WRONG'}; frames {N_TUM_SAVE}-{len(ds) - 1} resumed: "
+          f"lost {oks.count(False)}, ATE {ate_res:.6f} m (uninterrupted {ate:.6f}), max "
+          f"camera-centre difference from the uninterrupted run {diff:.3e} m | {smi}", flush=True)
+    if counts != (saved["n_keyframes"], saved["records"]) or not host_ok or \
+            len(same) != len(loaded):
+        raise AssertionError(f"checkpoint: {counts}, bit-equal {same}")
+    if not all(oks) or not ate_res < max(2.0 * ate, RESUME_ATE_MIN) or \
+            not diff < RESUME_CENTRE_MAX:
+        raise AssertionError(f"resumed run: lost {oks.count(False)}, ATE {ate_res}, "
+                             f"camera-centre difference {diff} m")
+
+    # update_calibration on the card: a settings file whose fx differs.
+    write_settings(out["calib"], dict(TUM_RGBD_SETTINGS, **{"Camera.fx": TUM_CALIB_FX}))
+    calib = serialize.load_system(out["ckpt"], cfg, device="cuda")
+    tracker_cfg = calib.tracker.cfg
+    calib.update_calibration(out["calib"])
+    cam = calib.cam
+    ok = bool(calib.track_rgbd(*ds[N_TUM_SAVE]))
+    print(f"phase 15 update_calibration on the card: fx {cfg.camera.fx} -> {float(cam.fx)} "
+          f"(system.cam on {cam.fx.device}, tracker.cam the same: {calib.tracker.cam is cam}), "
+          f"tracker.cfg unchanged: {calib.tracker.cfg is tracker_cfg}, next frame "
+          f"{'tracked' if ok else 'LOST'} with {calib.tracked_map_points()} inliers", flush=True)
+    if float(cam.fx) != TUM_CALIB_FX or cam.fx.device.type != "cuda" or \
+            calib.tracker.cam is not cam or calib.tracker.cfg is not tracker_cfg or not ok:
+        raise AssertionError("update_calibration on the card")
+    tmp.cleanup()
+
+
 def main() -> int:
     import torch
 
@@ -1570,6 +1846,10 @@ def main() -> int:
     # 14. the stereo path on the card, at the KITTI-00 configuration.
     _phase14(smi, report)
 
+    # 15. the TUM runner at its default configuration, checkpoints and
+    # re-calibration on the card.
+    _phase15(smi, report)
+
     rows = []
     for k, src, rep in (
         ("fast_score_nms", "ydorbslam_tpu_torch/csrc/fast_nms.cu",
@@ -1587,7 +1867,8 @@ def main() -> int:
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None,
                          loop_launches=r["loop_launches"],
-                         stereo_launches=r["stereo_launches"]))
+                         stereo_launches=r["stereo_launches"],
+                         tum_launches=r["tum_launches"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

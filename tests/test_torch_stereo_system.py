@@ -166,8 +166,7 @@ def test_kitti_runner_on_the_cpu(kitti_dir, tmp_path, capsys):
         assert len(f.read().splitlines()) == 3
 
 
-@pytest.mark.parametrize("extra", [["--pipelined"], ["--lag", "4"], ["--viewer-dir", "v"],
-                                   ["--viewer-every", "3"]])
+@pytest.mark.parametrize("extra", [["--pipelined"], ["--lag", "4"]])
 def test_kitti_runner_refuses_what_is_not_ported(kitti_dir, extra, capsys):
     with pytest.raises(SystemExit):
         run_kitti_stereo.main([kitti_dir, "--device", "cpu", *extra])

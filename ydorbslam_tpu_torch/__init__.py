@@ -10,10 +10,13 @@ ORB extraction, RGB-D depth association and stereo matching, projection
 matching, pose-only LM, local-map tracking, keyframe insertion and local
 mapping with its bundle adjustment, relocalization after tracking is
 lost (retrieval index, RANSAC, pose LM), the localization-only mode,
-loop closing with global BA, and the KITTI stereo runner
-(``python -m ydorbslam_tpu_torch.apps.run_kitti_stereo``).  The four TPU kernels on that path have hand-written
-CUDA counterparts for Hopper (``csrc/``); every kernel has a plain
-PyTorch version of the same contract that CPU tensors take.
+loop closing with global BA, checkpoints (``slam.serialize``, in the
+JAX package's file format), run-time re-calibration, the headless
+viewer (``viz.headless``), and the TUM RGB-D and KITTI stereo runners
+(``python -m ydorbslam_tpu_torch.apps.run_tum_rgbd`` and
+``...apps.run_kitti_stereo``).  The four TPU kernels on that path have
+hand-written CUDA counterparts for Hopper (``csrc/``); every kernel has
+a plain PyTorch version of the same contract that CPU tensors take.
 
 ``SlamSystem`` and ``Tracker`` put their state on the card
 (``device="cuda"``) unless the caller passes another device, as the CPU

@@ -1,0 +1,70 @@
+"""What the port's sequence runners share: the arguments that choose the
+device and the viewer, the refusal of what is not ported, and the timed
+frame loop with its report."""
+import os
+import time
+
+import torch
+
+NOT_PORTED = ("pipelined", "lag")
+
+
+def add_port_arguments(ap) -> None:
+    ap.add_argument("--viewer-dir", default=None,
+                    help="periodic in-run rendering (frame and map PNGs)")
+    ap.add_argument("--viewer-every", type=int, default=30)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--pipelined", action="store_true", help="not ported")
+    ap.add_argument("--lag", type=int, default=None, help="not ported")
+
+
+def check_arguments(ap, args) -> None:
+    """Stop with an error on what is not ported (the pipelined path and
+    the multi-host join of the ``YDORBSLAM_COORDINATOR`` /
+    ``YDORBSLAM_AUTO_DISTRIBUTED`` environment) and on a CUDA device
+    that is not there: no CPU fallback."""
+    given = [f"--{k}" for k in NOT_PORTED if getattr(args, k) not in (None, False)]
+    if given:
+        ap.error(f"{', '.join(given)}: not ported to the PyTorch package")
+    if os.environ.get("YDORBSLAM_COORDINATOR") or \
+            os.environ.get("YDORBSLAM_AUTO_DISTRIBUTED") == "1":
+        ap.error("the multi-host join is not ported to the PyTorch package")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device found (pass --device cpu to run on the CPU)")
+
+
+def track_frames(system, args, n: int, frame, track, progress_every: int,
+                 inliers: bool = True) -> list:
+    """Attach the viewer if asked, then track frames ``frame(0..n-1)``
+    with ``track``, each timed to its end on the device; print a
+    progress line every ``progress_every`` frames (with the inlier count
+    if ``inliers``), and once the system is shut down the median and
+    mean tracking time after the third frame (test.cpp:98-106).
+    Returns the per-frame seconds."""
+    if args.viewer_dir:
+        system.attach_viewer(args.viewer_dir, every=args.viewer_every)
+    cuda = system.device.type == "cuda"
+    times = []
+    for i in range(n):
+        f = frame(i)
+        t0 = time.perf_counter()
+        track(*f)
+        if cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i % progress_every == 0:
+            inl = f"inliers={system.tracked_map_points()} " if inliers else ""
+            print(f"frame {i}/{n} state={system.tracking_state().name} {inl}"
+                  f"kfs={system.n_keyframes}")
+    system.shutdown()
+    stimes = sorted(times[3:]) or times
+    print(f"median tracking time: {stimes[len(stimes) // 2]:.4f}")
+    print(f"mean tracking time: {sum(stimes) / len(stimes):.4f}")
+    return times
+
+
+def print_stats(system) -> None:
+    from ..slam.stats import format_stats
+
+    print("--- run stats ---")
+    print(format_stats(system.run_stats()))

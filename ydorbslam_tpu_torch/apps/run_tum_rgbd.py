@@ -1,0 +1,79 @@
+"""TUM RGB-D sequence runner for the PyTorch port: the contract of the
+reference's test program (test/src/test.cpp).
+
+    python -m ydorbslam_tpu_torch.apps.run_tum_rgbd CONFIG.yaml SEQUENCE_DIR ASSOC.txt
+        [--groundtruth GT.txt] [--no-loop] [--no-mapping] [--max-frames N]
+        [--out-trajectory PATH] [--out-kf-trajectory PATH] [--viz MAP.png]
+        [--viewer-dir DIR] [--viewer-every N] [--device cuda|cpu]
+
+The counterpart of ``apps/run_tum_rgbd.py``, with its arguments and
+output: it parses the association file, builds the system from the
+settings file (every capacity at ``load_config``'s default), tracks
+every frame through ``SlamSystem(cfg, Sensor.RGBD, ...)`` with mapping
+and loop closing on unless ``--no-mapping``/``--no-loop``, prints the
+median and mean tracking time (test.cpp:98-106), writes
+CameraTrajectory.txt and KeyFrameTrajectory.txt (test.cpp:109-110) and
+prints the run stats, a top-down map PNG (``--viz``) and, given a
+groundtruth.txt, the ATE of the written trajectory.  ``--viewer-dir``
+writes a frame and a map PNG every ``--viewer-every`` frames.  It runs
+on the card (``--device cuda``, the default) and fails when there is
+none; ``--device cpu`` runs the plain versions of the kernels.  Not
+ported: ``--pipelined``/``--lag`` and the multi-host join; each stops
+the runner with an error.  ``main`` returns the shut-down system.
+"""
+import argparse
+
+from ._common import add_port_arguments, check_arguments, print_stats, track_frames
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m ydorbslam_tpu_torch.apps.run_tum_rgbd")
+    ap.add_argument("config")
+    ap.add_argument("sequence_dir")
+    ap.add_argument("assoc")
+    ap.add_argument("--groundtruth", default=None)
+    ap.add_argument("--no-loop", action="store_true")
+    ap.add_argument("--no-mapping", action="store_true")
+    ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--out-trajectory", default="CameraTrajectory.txt")
+    ap.add_argument("--out-kf-trajectory", default="KeyFrameTrajectory.txt")
+    ap.add_argument("--viz", default=None, help="write a map/trajectory PNG")
+    add_port_arguments(ap)
+    args = ap.parse_args(argv)
+    check_arguments(ap, args)
+
+    from ..config import load_config
+    from ..io import TumRgbdDataset
+    from ..io.trajectory import ate_against_groundtruth
+    from ..slam.system import Sensor, SlamSystem
+
+    cfg = load_config(args.config)
+    ds = TumRgbdDataset(args.sequence_dir, args.assoc, cfg.depth.depth_map_factor,
+                        is_rgb=cfg.camera.is_rgb)
+    n = len(ds) if not args.max_frames else min(args.max_frames, len(ds))
+    print(f"sequence: {n} frames; starting SLAM")
+    system = SlamSystem(cfg, Sensor.RGBD, enable_mapping=not args.no_mapping,
+                        enable_loop_closing=not args.no_loop, device=args.device)
+    track_frames(system, args, n, ds.__getitem__, system.track_rgbd, 50)
+    system.save_trajectory_tum(args.out_trajectory)
+    system.save_keyframe_trajectory_tum(args.out_kf_trajectory)
+    print(f"trajectories saved: {args.out_trajectory}, {args.out_kf_trajectory}")
+    print_stats(system)
+
+    if args.viz:
+        from ..viz.headless import render_map_topdown
+
+        render_map_topdown(system.map, args.viz)
+        print(f"map rendering saved: {args.viz}")
+
+    if args.groundtruth:
+        err, n_poses = ate_against_groundtruth(args.out_trajectory, args.groundtruth)
+        if err is not None:
+            print(f"ATE RMSE: {err:.4f} m over {n_poses} poses")
+        else:
+            print("ATE: too few associations with groundtruth")
+    return system
+
+
+if __name__ == "__main__":
+    main()

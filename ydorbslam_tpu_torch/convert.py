@@ -141,6 +141,14 @@ def features_from_numpy(feats: Mapping[str, np.ndarray], device="cpu") -> FrameF
     )
 
 
+def features_to_numpy(f: FrameFeatures) -> dict:
+    """The inverse of ``features_from_numpy``: field name -> numpy array,
+    descriptors as uint32."""
+    out = {name: v.cpu().numpy() for name, v in f._asdict().items()}
+    out["desc"] = out["desc"].view(np.uint32)
+    return out
+
+
 def tracker_state_from_numpy(
     tracker: Tracker,
     *,

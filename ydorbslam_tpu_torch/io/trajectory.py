@@ -142,3 +142,16 @@ def ate_rmse(
     aligned = (s * (R @ est.T)).T + t
     err = aligned - gt
     return float(np.sqrt((err * err).sum(axis=1).mean()))
+
+
+def ate_against_groundtruth(traj_path: str, gt_path: str):
+    """The runners' ATE of a TUM trajectory file against a TUM
+    groundtruth file (``t tx ty tz qx qy qz qw`` rows), poses associated
+    by time: (ATE RMSE in metres, or None below 3 associations; the
+    number of associated poses)."""
+    gt = np.loadtxt(gt_path, comments="#", ndmin=2)
+    t_est, p_est, _ = read_tum_trajectory(traj_path)
+    ia, ib = associate_by_time(t_est, gt[:, 0])
+    if len(ia) < 3:
+        return None, len(ia)
+    return float(ate_rmse(p_est[ia], gt[ib][:, 1:4])), len(ia)

@@ -37,9 +37,11 @@ with whole-group fusion, the essential graph, and a global BA advanced
 one chunk per keyframe and merged into the live map; ``shutdown()``
 verifies what is pending and finishes the global BA.
 
-Not ported yet: the pipelined path (ROADMAP slice 14), checkpoints,
-``update_calibration``, ``tracked_keypoints``, ``map_changed_index`` and
-the viewer.
+``attach_viewer`` makes both tracking calls hand their frame to a
+``viz.headless.PeriodicViewer``, which reads the card only on a frame it
+draws.  ``update_calibration`` reloads the camera from a settings file as
+the JAX package does; ``slam/serialize.py`` checkpoints and restores a
+system.  Not ported yet: the pipelined path (ROADMAP slice 14).
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import SlamConfig
+from ..config import SlamConfig, camera_intrinsics, load_config
 from ..geometry.camera import backproject
 from ..io.trajectory import write_tum_trajectory
 from ..ops.extractor import FrameFeatures
@@ -201,6 +203,7 @@ class SlamSystem:
         # the mode, as in the JAX package.
         self.localization_only = False
         self.visual_odometry = False
+        self.viewer = None  # optional PeriodicViewer (attach_viewer)
         self._clear()
         self.cam = self.tracker.cam
 
@@ -246,6 +249,8 @@ class SlamSystem:
             raise ValueError("sensor mismatch: track_rgbd on a non-RGB-D system")
         ok = self.tracker.track_rgbd(timestamp, gray, depth)
         self._record(timestamp, ok)
+        if self.viewer is not None:
+            self.viewer.maybe_draw(self, self.frame_id, gray)
         self.frame_id += 1
         return ok
 
@@ -254,8 +259,19 @@ class SlamSystem:
             raise ValueError("sensor mismatch: track_stereo on a non-stereo system")
         ok = self.tracker.track_stereo(timestamp, gray_l, gray_r)
         self._record(timestamp, ok)
+        if self.viewer is not None:
+            self.viewer.maybe_draw(self, self.frame_id, gray_l)
         self.frame_id += 1
         return ok
+
+    def attach_viewer(self, out_dir: str, every: int = 30, **kw):
+        """In-run periodic rendering (viewer.cpp:37-121 analogue): every
+        ``every`` frames an annotated frame PNG and a top-down map PNG
+        under ``out_dir``."""
+        from ..viz.headless import PeriodicViewer
+
+        self.viewer = PeriodicViewer(out_dir, every=every, **kw)
+        return self.viewer
 
     def activate_localization_mode(self):
         """Pause mapping; keep tracking (system.cpp:80-87).  Tracking
@@ -283,12 +299,38 @@ class SlamSystem:
         self.stats = RunStats()
         self.stats.resets = resets
 
+    def update_calibration(self, yaml_path: str):
+        """Runtime re-calibration from a settings file
+        (Tracking::changeIntParMat, tracking.cpp:128-146): a new ``cfg``
+        and camera, and the depth threshold made from them.  As in the
+        JAX package, the tracker keeps its own ``cfg`` (distortion gate,
+        ORB settings), its depth divisor and the octave tables."""
+        self.cfg = load_config(yaml_path, base=self.cfg)
+        self.cam = camera_intrinsics(self.cfg, self.device)
+        self.tracker.cam = self.cam
+        self.depth_threshold = self.cfg.depth.th_depth * self.cfg.camera.bf / self.cfg.camera.fx
+        self._depth_thr_dev = f32(self.depth_threshold, self.device)
+
     def tracking_state(self) -> TrackingState:
         return self.tracker.state
 
     def tracked_map_points(self) -> int:
         """System::getTrackedMapPoints analogue: inliers of the last pose solve."""
         return self.tracker.n_inliers
+
+    def tracked_keypoints(self):
+        """System::getTrackedKeyPoints analogue: the last frame's keypoint
+        coordinates and validity as numpy arrays (one read of the
+        device), or None before the first frame."""
+        f = self.tracker.last_feats
+        if f is None:
+            return None
+        a = torch.cat([f.uv, f.valid[:, None].to(f.uv.dtype)], -1).cpu().numpy()
+        return a[:, :2], a[:, 2] > 0.5
+
+    def map_changed_index(self) -> int:
+        """Big-change counter analogue (map.hpp:46-47)."""
+        return self.n_keyframes
 
     def run_stats(self) -> dict:
         """Per-run counters merged with values from the frame records and

@@ -8,10 +8,14 @@ kernels on the card; ``lm_obs_problem`` makes a seeded K4 input for the
 last two.  ``wall_ms`` and ``device_ms`` time a call on the card with
 and without the host's dispatch.  ``make_stereo_frames`` renders the
 stereo workload: a rectified pair sequence at the KITTI-00 camera.
+``write_tum_sequence`` writes RGB-D frames to disk as a TUM sequence
+directory with its settings file (``TUM_RGBD_SETTINGS``).
 
-This module imports only numpy and torch, nothing else of the package,
-so ``tools/time_kernels.py`` can load it by path beside another
-checkout's package.
+At import this module needs only numpy and torch, nothing else of the
+package, so ``tools/time_kernels.py`` can load it by path beside another
+checkout's package and call its generators and timers.
+``write_tum_sequence`` imports PIL and the package's ``io.trajectory``
+when called, so it is called through the package.
 """
 from __future__ import annotations
 
@@ -41,6 +45,21 @@ KITTI00 = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
 # px track well but make one keyframe in 60 frames.
 STEREO_LANDMARKS = 1000
 STEREO_DOT = 13  # px side of a rendered landmark
+# The settings file of the TUM RGB-D workload: the camera that
+# bench.make_frames() renders with (fx = fy = 500, principal point at the
+# centre of 640x480, no distortion, bf 50, i.e. a 0.1 m baseline) and the
+# rest of ORB-SLAM2's Examples/RGB-D/TUM1.yaml: RGB channel order, 30 fps,
+# ThDepth 40, DepthMapFactor 5000, 1000 features on 8 levels at 1.2,
+# FAST thresholds 20 and 7.  Capacities and min_init_depth_points are not
+# settings-file keys, so a run keeps load_config's defaults.
+TUM_RGBD_SETTINGS = {
+    "Camera.fx": 500.0, "Camera.fy": 500.0, "Camera.cx": 320.0, "Camera.cy": 240.0,
+    "Camera.k1": 0.0, "Camera.k2": 0.0, "Camera.p1": 0.0, "Camera.p2": 0.0,
+    "Camera.k3": 0.0, "Camera.width": 640, "Camera.height": 480, "Camera.fps": 30.0,
+    "Camera.bf": 50.0, "Camera.RGB": 1, "ThDepth": 40.0, "DepthMapFactor": 5000.0,
+    "ORBextractor.nFeatures": 1000, "ORBextractor.scaleFactor": 1.2,
+    "ORBextractor.nLevels": 8, "ORBextractor.iniThFAST": 20, "ORBextractor.minThFAST": 7,
+}
 
 
 def proj_problem(rng, M, N, kind="random"):
@@ -291,3 +310,43 @@ def make_stereo_frames(n_frames=60, seed=0):
             pair.append(render_dots(uv, z, seq.width, seq.height, dot=STEREO_DOT).astype(np.uint8))
         frames.append((i / c["fps"], pair[0], pair[1]))
     return frames, seq.poses
+
+
+def write_settings(path, settings) -> None:
+    """Write ``settings`` (key -> value) as an OpenCV-style settings file
+    that ``config.load_config`` reads."""
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in settings.items()))
+
+
+def write_tum_sequence(root, frames, poses, yaml_settings):
+    """Write RGB-D ``frames`` ((timestamp, uint8 gray, uint16 depth), as
+    ``bench.make_frames()`` makes them) and their ground-truth T_cw
+    ``poses`` under ``root`` as a TUM RGB-D sequence directory:
+    ``rgb/<t>.png`` (8-bit gray), ``depth/<t>.png`` (16-bit, the depth
+    encoding kept as given), ``assoc.txt``, ``groundtruth.txt``
+    (camera-to-world, ``t tx ty tz qx qy qz qw``) and ``settings.yaml``
+    of ``yaml_settings`` (``write_settings``; the workload's is
+    ``TUM_RGBD_SETTINGS``).  Returns the paths of the settings file, the
+    association file and the ground truth.  ``io.TumRgbdDataset`` reads
+    the images back bit for bit."""
+    from PIL import Image
+
+    from .io.trajectory import write_tum_trajectory
+
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    assoc = []
+    for t, gray, depth in frames:
+        ts = f"{t:.6f}"
+        Image.fromarray(np.ascontiguousarray(gray, dtype=np.uint8)).save(
+            os.path.join(root, "rgb", f"{ts}.png"))
+        Image.fromarray(np.ascontiguousarray(depth, dtype=np.uint16)).save(
+            os.path.join(root, "depth", f"{ts}.png"))
+        assoc.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
+    paths = [os.path.join(root, n) for n in ("settings.yaml", "assoc.txt", "groundtruth.txt")]
+    write_settings(paths[0], yaml_settings)
+    with open(paths[1], "w") as f:
+        f.writelines(assoc)
+    write_tum_trajectory(paths[2], [t for t, _, _ in frames], poses)
+    return tuple(paths)
