@@ -102,7 +102,14 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      ``SlamSystem`` from copies of the map, index, pending detection and
      generator state taken just before it: the same candidates and gate
      counts, S_12 within 1e-4 m and 1e-4 rad, corrected keyframe poses
-     within 1e-3 m (global BA left out on the CPU).  Then K2 on the
+     within 1e-3 m (global BA left out on the CPU).  The essential
+     graph of that event (its ``PoseGraphProblem``, kept as the run made
+     it) runs twice more on the card, bit-equal, and once on the CPU from
+     copies, keyframe centres within 1e-3 m; a seeded stress graph
+     (``testing.pose_graph_problem``: 160 keyframes, 2,000 edges with
+     duplicate pairs, degrees of 20 and more) runs twice on the card,
+     bit-equal and closer to its true poses; it prints the edge counts
+     and the ms of each run.  Then K2 on the
      captured verification (1024 x 1024), guided (8192 x 1024) and fusion
      (4096 x 1024) inputs, identical to plain, and K4 on the captured
      global-BA input (32, 16, 16384) within rtol 2e-4, atol 2e-3, each
@@ -158,6 +165,11 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      system loaded from the same file: the new camera on the card in the
      system and the tracker, ``tracker.cfg`` unchanged, the next frame
      tracked.
+ 16. the exported helpers that have no kernel (geometry, Hamming, blur,
+     empty features, ``remove_keyframe``): one card call each on seeded
+     inputs against the port's own CPU result, integer and bool outputs
+     identical, floats at the tolerances of ``tests/test_torch_api.py``
+     (1e-5; ``se3_log`` near pi 1e-4; ``gaussian_blur`` 1e-3 absolute).
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -234,6 +246,10 @@ JAX_CPU_ATE_REVISIT = 0.3651492535120875
 JAX_CPU_TRACKED_REVISIT = 138
 N_CIRCUIT = 100  # frames of the orbit before the revisit
 LOOP_TOL_M, LOOP_TOL_RAD, LOOP_KF_TOL_M = 1e-4, 1e-4, 1e-3  # card against CPU loop event
+# The stress graph of phase 13's reproducibility gate (testing.pose_graph_problem):
+# 160 keyframes, each linked to the next 10 (degree 20), 200 random edges
+# and 200 repeats of earlier ones: 2,000 edges.
+STRESS_GRAPH = dict(V=160, n_offsets=10, n_extra=200, n_dup=200)
 # The host's waits on the card allowed per call of each loop-closing step,
 # as CUDA's sync debug mode counts them: the poll reads the pending
 # detection once; a verification reads its pack once and waits on the
@@ -670,6 +686,7 @@ def _phase13(smi, report):
     from ydorbslam_tpu_torch.slam import loop_impl, matchers
     from ydorbslam_tpu_torch.slam.map_state import MapState
     from ydorbslam_tpu_torch.slam.retrieval import RetrievalIndex
+    from ydorbslam_tpu_torch.optim.pose_graph import PoseGraphProblem
     from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
     from ydorbslam_tpu_torch.testing import device_ms
 
@@ -791,6 +808,14 @@ def _phase13(smi, report):
                             k2={k[1]: v for k, v in captured.items() if k[0] == "k2"})
         return closed
 
+    def keep_graph(prob, **kwargs):
+        """The first essential graph (the accepted loop event's) is kept
+        for the reproducibility gate."""
+        if "graph" not in captured:
+            captured["graph"] = (PoseGraphProblem(*(x.clone() for x in prob)), kwargs)
+        return timed_graph(prob, **kwargs)
+
+    timed_graph = sync_timed(loop_impl.optimize_pose_graph, "pose_graph")
     timed_chunk = sync_timed(loop_impl._lm_chunk, "chunk", "chunk")
     timed_verify = sync_timed(loop_impl._verify_pack, "verify", "verify")
     orig_poll = Impl._poll_pending
@@ -801,7 +826,7 @@ def _phase13(smi, report):
         (loop_impl, "_verify_pack", verify),
         (loop_impl, "_correct_on_device",
          sync_timed(loop_impl._correct_on_device, "correct", "correct")),
-        (loop_impl, "optimize_pose_graph", sync_timed(loop_impl.optimize_pose_graph, "pose_graph")),
+        (loop_impl, "optimize_pose_graph", keep_graph),
         (loop_impl, "_lm_chunk", synced(chunk, "chunk")),
         (loop_impl, "_merge_gba", synced(sync_timed(loop_impl._merge_gba, "merge"), "merge")),
         (Impl, "_essential_graph", sync_timed(Impl._essential_graph, "essential")),
@@ -948,6 +973,7 @@ def _phase13(smi, report):
     if not closed_cpu or len(card_v) != len(cpu_v) or not all(same_gates) or \
             not d_t < LOOP_TOL_M or not d_r < LOOP_TOL_RAD or not d_kf < LOOP_KF_TOL_M:
         raise AssertionError("card and CPU loop events disagree")
+    _graph_gate(captured["graph"], smi)
 
     # K2 on the accepted loop event's inputs, K4 on global BA's last input.
     lines = []
@@ -985,6 +1011,54 @@ def _phase13(smi, report):
           flush=True)
     for k in report:
         report[k]["loop_launches"] = loop_launch.get(k, 0)
+
+
+def _graph_gate(graph, smi):
+    """F4: the accepted loop event's essential graph twice on the card
+    (bit-equal) and once on the CPU from copies (keyframe centres within
+    ``LOOP_KF_TOL_M``), then the seeded stress graph twice on the card
+    (bit-equal, and closer to its true poses than it started)."""
+    import numpy as np
+    import torch
+
+    from ydorbslam_tpu_torch.geometry.sim3 import sim3_to_se3
+    from ydorbslam_tpu_torch.optim.pose_graph import PoseGraphProblem, optimize_pose_graph
+    from ydorbslam_tpu_torch.testing import pose_graph_problem
+
+    def timed(prob, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S = optimize_pose_graph(prob, **kwargs)
+        torch.cuda.synchronize()
+        return S, (time.perf_counter() - t0) * 1e3
+
+    def centres(S, keep):
+        return _centres(sim3_to_se3(S).cpu().numpy().astype(np.float64)[keep])
+
+    prob, kwargs = graph
+    (S1, ms1), (S2, ms2) = timed(prob, **kwargs), timed(prob, **kwargs)
+    S_cpu = optimize_pose_graph(PoseGraphProblem(*(x.cpu() for x in prob)), **kwargs)
+    keep = prob.vertex_valid.cpu().numpy()
+    d_cpu = float(np.abs(centres(S1, keep) - centres(S_cpu, keep)).max())
+    loop_equal = torch.equal(S1, S2)
+
+    sd, T_true = pose_graph_problem(np.random.default_rng(0), **STRESS_GRAPH)
+    stress = PoseGraphProblem(**{k: torch.as_tensor(v).cuda() for k, v in sd.items()})
+    (T1, sms1), (T2, sms2) = timed(stress, **kwargs), timed(stress, **kwargs)
+    every = np.ones(STRESS_GRAPH["V"], bool)
+    err0 = float(np.abs(_centres(sd["S_iw"].astype(np.float64)) - _centres(T_true)).max())
+    err1 = float(np.abs(centres(T1, every) - _centres(T_true)).max())
+    stress_equal = torch.equal(T1, T2)
+    print(f"phase 13 essential graph reproducibility (F4): loop event {prob.edge_i.shape[0]} "
+          f"edges, {int(keep.sum())} keyframes, two card runs "
+          f"{'bit-equal' if loop_equal else 'DIFFERENT'} ({ms1:.3f} / {ms2:.3f} ms), CPU run "
+          f"centres max {d_cpu:.3e} m apart; stress graph {stress.edge_i.shape[0]} edges, "
+          f"{STRESS_GRAPH['V']} keyframes, two card runs "
+          f"{'bit-equal' if stress_equal else 'DIFFERENT'} ({sms1:.3f} / {sms2:.3f} ms), centre "
+          f"error against the truth {err0:.4f} -> {err1:.4f} m | {smi}", flush=True)
+    if not loop_equal or not stress_equal or not d_cpu < LOOP_KF_TOL_M or \
+            not torch.isfinite(T1).all() or not err1 < 0.5 * err0:
+        raise AssertionError("essential graph: not reproducible on the card, or off the CPU")
 
 
 def _phase14(smi, report):
@@ -1463,6 +1537,107 @@ def _phase15(smi, report):
     tmp.cleanup()
 
 
+def _phase16(smi):
+    """Phase 16: every exported helper the port added beside the JAX
+    package's API (geometry, Hamming, blur, empty features, retrieval)
+    called once on the card on seeded inputs and held to the port's own
+    CPU result: integers and masks identical, floats at the tolerances of
+    ``tests/test_torch_api.py``."""
+    import numpy as np
+    import torch
+
+    from ydorbslam_tpu_torch import geometry as geo
+    from ydorbslam_tpu_torch import ops
+    from ydorbslam_tpu_torch.slam import retrieval
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    cams = {d: geo.CameraIntrinsics.create(517.3, 516.5, 318.6, 255.3, bf=40.0, width=640,
+                                           height=480, device=d) for d in ("cpu", "cuda")}
+    xi = rng.normal(size=(256, 6)).astype(np.float32)
+    xi[:, 3:] *= np.minimum(1.0, 2.8 / np.linalg.norm(xi[:, 3:], axis=-1, keepdims=True))
+    xi[:32, 3:] *= np.float32(1e-6)  # near the identity
+    axis = xi[-32:, 3:] / np.linalg.norm(xi[-32:, 3:], axis=-1, keepdims=True)
+    T = geo.se3_exp(torch.from_numpy(xi))
+    T_pi = geo.se3_exp(torch.from_numpy(np.concatenate(
+        [xi[-32:, :3], (np.pi - 1e-4) * axis], -1).astype(np.float32)))
+    pts = torch.from_numpy(rng.uniform([-2, -2, -0.5], [2, 2, 5], (256, 3)).astype(np.float32))
+    uv = torch.from_numpy(np.concatenate([
+        np.stack(np.meshgrid([-0.5, 0.0, 3.0, 477.0, 480.0, 637.0, 640.0],
+                             [-0.5, 0.0, 3.0, 477.0, 480.0]), -1).reshape(-1, 2),
+        rng.uniform(-10, 650, (256, 2))]).astype(np.float32))
+    q_raw = torch.from_numpy(rng.normal(size=(256, 4)).astype(np.float32))
+    image = torch.from_numpy(rng.uniform(0, 255, (480, 640)).astype(np.float32))
+    desc_a = torch.from_numpy(rng.integers(0, 2**32, (1024, 8), dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32))
+    desc_b = torch.from_numpy(rng.integers(0, 2**32, (1024, 8), dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32))
+    d_ties = torch.from_numpy(rng.integers(0, 4, (1024, 512)).astype(np.int32))
+    bins = np.where(rng.random(1024) < 0.7, rng.choice([3, 4, 17], 1024),
+                    rng.integers(0, 30, 1024))
+    diff = (bins + rng.uniform(0.01, 0.99, 1024)) * (2 * np.pi / 30)
+    match = rng.integers(0, 1024, 1024).astype(np.int32)
+    match[rng.random(1024) < 0.15] = -1
+    ang_b = rng.uniform(0, 2 * np.pi, 1024)
+    ang_a = np.mod(ang_b[np.maximum(match, 0)] + diff, 2 * np.pi)
+    rot = tuple(torch.from_numpy(x.astype(t)) for x, t in
+                ((match, np.int32), (ang_a, np.float32), (ang_b, np.float32)))
+    hist = rng.random((512, 4096)).astype(np.float32) * (rng.random((512, 4096)) < 0.05)
+    index = retrieval.RetrievalIndex(torch.from_numpy(hist),
+                                     torch.from_numpy((hist > 0).astype(np.float32)),
+                                     torch.from_numpy(rng.random(512) < 0.8))
+    calls = {
+        "se3_log": (1e-5, lambda d: geo.se3_log(T.to(d))),
+        "se3_log near pi": (1e-4, lambda d: geo.se3_log(T_pi.to(d))),
+        "vee": (0, lambda d: geo.vee(T.to(d)[:, :3, :3])),
+        "so3_log": (1e-5, lambda d: geo.so3_log(T.to(d)[:, :3, :3])),
+        "transform_points": (1e-5, lambda d: geo.transform_points(T.to(d)[:4], pts.to(d))),
+        "rot_to_quat": (1e-5, lambda d: geo.rot_to_quat(T.to(d)[:, :3, :3])),
+        "quat_to_rot": (1e-5, lambda d: geo.quat_to_rot(q_raw.to(d))),
+        "project": (1e-5, lambda d: geo.project(cams[d], pts.to(d))),
+        "project_stereo": (1e-5, lambda d: geo.project_stereo(cams[d], pts.to(d))),
+        "in_image": (0, lambda d: geo.in_image(cams[d], uv.to(d), 3.0)),
+        "CameraIntrinsics.baseline": (1e-5, lambda d: cams[d].baseline),
+        "se3_to_sim3": (0, lambda d: geo.se3_to_sim3(T.to(d))),
+        "sim3_log": (1e-5, lambda d: geo.sim3_log(geo.se3_to_sim3(T.to(d)))),
+        "gaussian_blur": (1e-3, lambda d: ops.gaussian_blur(image.to(d))),
+        "empty_features": (0, lambda d: ops.empty_features(1024, device=d)),
+        "hamming_distance": (0, lambda d: ops.hamming_distance(desc_a.to(d), desc_b.to(d))),
+        "best_and_second": (0, lambda d: ops.best_and_second(d_ties.to(d))),
+        "ratio_test_matches": (0, lambda d: ops.ratio_test_matches(d_ties.to(d), 2, ratio=0.9)),
+        "ratio_test_matches mutual": (0, lambda d: ops.ratio_test_matches(
+            d_ties.to(d), 2, mutual=True)),
+        "filter_matches_by_rotation": (0, lambda d: ops.filter_matches_by_rotation(
+            *(x.to(d) for x in rot))),
+        "remove_keyframe": (0, lambda d: retrieval.remove_keyframe(
+            retrieval.RetrievalIndex(*(x.to(d) for x in index)), 7)),
+    }
+    errs = {}
+    for name, (tol, fn) in calls.items():
+        card, cpu = fn("cuda"), fn("cpu")
+        card = card if isinstance(card, tuple) else (card,)
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        err = 0.0
+        for a, b in zip(card, cpu):
+            if not a.is_cuda or a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"phase 16 {name}: card output {a.device} {a.dtype} "
+                                     f"{tuple(a.shape)}, CPU {b.dtype} {tuple(b.shape)}")
+            a = a.cpu()
+            if tol == 0 or not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"phase 16 {name}: card and CPU differ")
+            else:
+                if not torch.allclose(a, b, atol=tol, rtol=tol if tol < 1e-3 else 0.0):
+                    raise AssertionError(f"phase 16 {name}: card and CPU differ by "
+                                         f"{float((a - b).abs().max()):.3e}")
+                err = max(err, float((a - b).abs().max()))
+        errs[name] = err
+    print(f"phase 16 exported helpers on the card against the CPU: {len(calls)} calls, integer "
+          f"and bool outputs identical, float max abs differences "
+          f"{ {k: float('%.3e' % v) for k, v in errs.items() if calls[k][0]} }; "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1849,6 +2024,9 @@ def main() -> int:
     # 15. the TUM runner at its default configuration, checkpoints and
     # re-calibration on the card.
     _phase15(smi, report)
+
+    # 16. the exported helpers on the card against the CPU.
+    _phase16(smi)
 
     rows = []
     for k, src, rep in (

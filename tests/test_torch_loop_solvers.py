@@ -5,7 +5,12 @@
 * ``ransac_sim3`` fed the JAX package's own ``jax.random.choice`` picks:
   the same inlier mask, count and ``ok``; ``S_12`` within 1e-5.
 * ``optimize_sim3`` and ``optimize_pose_graph`` on the unit problems of
-  tests/test_loop_components.py: the same inlier masks, poses within 1e-4.
+  tests/test_loop_components.py: the same inlier masks, poses within 1e-4;
+  ``optimize_pose_graph`` also on a seeded graph of 40 keyframes with
+  degrees of 10 and more and duplicate edge pairs
+  (``testing.pose_graph_problem``), poses within 1e-4, and its
+  fixed-order assembly against a float64 numpy assembly of the same
+  Jacobians within 1e-5 of the largest entry.
 * ``recompute_covis_all`` on a map carried across from JAX: identical
   integers.
 * ``lm_solve`` with a tensor damping (JAX's ``lam_init=``) and
@@ -35,10 +40,12 @@ from ydorbslam_tpu_torch.convert import ba_problem_from_numpy, camera_from_numpy
 from ydorbslam_tpu_torch.geometry import sim3 as psim3
 from ydorbslam_tpu_torch.optim import schur as pschur
 from ydorbslam_tpu_torch.optim.horn import ransac_sim3 as p_ransac
+from ydorbslam_tpu_torch.optim import pose_graph as ppg
 from ydorbslam_tpu_torch.optim.pose_graph import PoseGraphProblem as PProblem
 from ydorbslam_tpu_torch.optim.pose_graph import optimize_pose_graph as p_pgo
 from ydorbslam_tpu_torch.optim.sim3_opt import optimize_sim3 as p_sim3opt
 from ydorbslam_tpu_torch.slam import map_state as pms
+from ydorbslam_tpu_torch.testing import pose_graph_problem
 
 torch.set_num_threads(2)
 
@@ -220,6 +227,59 @@ def test_optimize_pose_graph_matches_jax(fix_scale, extra_invalid):
     elif fix_scale:
         err_before = np.linalg.norm(T_drift[-1][:3, 3] - T_true[-1][:3, 3])
         assert np.linalg.norm(S_p[-1][:3, 3] - T_true[-1][:3, 3]) < 0.3 * err_before
+
+
+def _dense_graph():
+    """V = 40 keyframes, each linked to the next 5 around a circle
+    (degree 10), 20 random edges and 40 repeats of earlier edges (half
+    reversed)."""
+    return pose_graph_problem(np.random.default_rng(8), 40, 5, 20, 40)
+
+
+@pytest.mark.parametrize("fix_scale", [True, False])
+def test_optimize_pose_graph_high_degree_matches_jax(fix_scale):
+    d, T_true = _dense_graph()
+    pairs = np.stack([np.minimum(d["edge_i"], d["edge_j"]), np.maximum(d["edge_i"], d["edge_j"])])
+    assert np.unique(pairs, axis=1).shape[1] < pairs.shape[1]  # duplicate pairs
+    assert np.bincount(np.concatenate([d["edge_i"], d["edge_j"]])).min() >= 10
+    S_j = np.asarray(j_pgo(JProblem(**{k: jnp.asarray(v) for k, v in d.items()}), iters=20,
+                           fix_scale=fix_scale))
+    S_p = p_pgo(PProblem(**{k: torch.from_numpy(v) for k, v in d.items()}), iters=20,
+                fix_scale=fix_scale).numpy()
+    np.testing.assert_allclose(S_p, S_j, atol=1e-4)
+    np.testing.assert_array_equal(S_p[0], d["S_iw"][0])
+
+    def centres(S):
+        S = S.astype(np.float64)
+        return -np.einsum("vji,vj->vi", S[:, :3, :3], S[:, :3, 3])
+
+    err_before = np.abs(centres(d["S_iw"]) - centres(T_true)).max()
+    assert np.abs(centres(S_p) - centres(T_true)).max() < 0.1 * err_before
+
+
+def test_pose_graph_assembly_matches_float64():
+    d, _ = _dense_graph()
+    V = d["S_iw"].shape[0]
+    ic, jc = (torch.from_numpy(d[k]).to(torch.int64) for k in ("edge_i", "edge_j"))
+    w_np = np.linspace(0.5, 2.0, ic.shape[0]).astype(np.float32)
+    S = torch.from_numpy(d["S_iw"])
+    r, Ji, Jj = ppg._edge_jacobians(torch.from_numpy(d["edge_meas"]), S[ic], S[jc], False)
+    H, b = ppg.assemble(ppg.edge_segments(ic, jc, V), Ji, Jj, r, torch.from_numpy(w_np), V)
+    Ji64, Jj64, r64 = (x.numpy().astype(np.float64) for x in (Ji, Jj, r))
+    w64 = w_np.astype(np.float64)[:, None, None]
+    H64 = np.zeros((V, V, 7, 7))
+    b64 = np.zeros((V, 7))
+    i, j = ic.numpy(), jc.numpy()
+    Hij = w64 * np.einsum("eci,ecj->eij", Ji64, Jj64)
+    np.add.at(H64, (i, j), Hij)
+    np.add.at(H64, (j, i), Hij.transpose(0, 2, 1))
+    np.add.at(H64, (i, i), w64 * np.einsum("eci,ecj->eij", Ji64, Ji64))
+    np.add.at(H64, (j, j), w64 * np.einsum("eci,ecj->eij", Jj64, Jj64))
+    np.add.at(b64, i, w64[:, :, 0] * np.einsum("eci,ec->ei", Ji64, r64))
+    np.add.at(b64, j, w64[:, :, 0] * np.einsum("eci,ec->ei", Jj64, r64))
+    assert H.shape == (V, V, 7, 7) and b.shape == (V, 7)
+    np.testing.assert_allclose(H.numpy(), H64, rtol=1e-5, atol=1e-5 * np.abs(H64).max())
+    np.testing.assert_allclose(b.numpy(), b64, rtol=1e-5, atol=1e-5 * np.abs(b64).max())
 
 
 # ----------------------------------------------------------------------

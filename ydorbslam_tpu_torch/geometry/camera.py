@@ -2,7 +2,8 @@
 
 Port of ``ydorbslam_tpu/geometry/camera.py``: the intrinsics shared by
 all frames, ``undistort_points`` (fixed-point iteration, the
-``cv::undistortPoints`` replacement) and ``backproject``.
+``cv::undistortPoints`` replacement), the pinhole ``project`` and
+``project_stereo``, ``backproject`` and the ``in_image`` bounds mask.
 Batched over points: (N,2)/(N,3) tensors in, (N,...) tensors out.
 """
 from __future__ import annotations
@@ -45,6 +46,10 @@ class CameraIntrinsics(NamedTuple):
             int(width), int(height),
         )
 
+    @property
+    def baseline(self) -> torch.Tensor:
+        return self.bf / self.fx
+
 
 def distort_normalized(cam: CameraIntrinsics, xn: torch.Tensor) -> torch.Tensor:
     """Apply radtan distortion to normalized coords (...,2) -> (...,2)."""
@@ -73,6 +78,23 @@ def undistort_points(
     )
 
 
+def project(cam: CameraIntrinsics, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Camera-frame 3D points (...,3) -> undistorted pixels (...,2), pure
+    pinhole, depth clamped at 1e-6."""
+    z = torch.clamp(pts_cam[..., 2], min=1e-6)
+    return torch.stack(
+        [cam.fx * pts_cam[..., 0] / z + cam.cx, cam.fy * pts_cam[..., 1] / z + cam.cy], dim=-1
+    )
+
+
+def project_stereo(cam: CameraIntrinsics, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Project to the stereo triple (uL, vL, uR) with uR = uL - bf/z."""
+    uv = project(cam, pts_cam)
+    z = torch.clamp(pts_cam[..., 2], min=1e-6)
+    ur = uv[..., 0] - cam.bf / z
+    return torch.cat([uv, ur[..., None]], dim=-1)
+
+
 def backproject(
     cam: CameraIntrinsics, uv: torch.Tensor, depth: torch.Tensor
 ) -> torch.Tensor:
@@ -80,3 +102,13 @@ def backproject(
     x = (uv[..., 0] - cam.cx) / cam.fx * depth
     y = (uv[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def in_image(cam: CameraIntrinsics, uv: torch.Tensor, border: float = 0.0) -> torch.Tensor:
+    """Bounds mask for pixel coords (...,2) -> (...,) bool, half-open:
+    border <= u < width - border, likewise v."""
+    u, v = uv[..., 0], uv[..., 1]
+    return (
+        (u >= border) & (u < cam.width - border)
+        & (v >= border) & (v < cam.height - border)
+    )

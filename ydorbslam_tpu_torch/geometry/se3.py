@@ -1,7 +1,6 @@
 """SE(3) tangent-space operations on torch tensors.
 
-Port of ``ydorbslam_tpu/geometry/se3.py`` (the subset the tracking
-slice uses).  Same conventions:
+Port of ``ydorbslam_tpu/geometry/se3.py``.  Same conventions:
 
   * A pose is a 4x4 homogeneous matrix ``T = [[R, t], [0, 1]]``.
   * Camera poses are world-to-camera (``T_cw``).
@@ -97,6 +96,21 @@ def _left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     return _eye_like(K) + b[..., None, None] * K + c[..., None, None] * K2
 
 
+def _left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_left_jacobian`, with its Taylor series near 0."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    half = theta * 0.5
+    cot = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS)) / theta2,
+    )
+    K = hat(phi)
+    K2 = K @ K
+    return _eye_like(K) - 0.5 * K + cot[..., None, None] * K2
+
+
 def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (...,4,4) from (...,3,3) rotation and (...,3) translation."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
@@ -116,6 +130,14 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     R = so3_exp(phi)
     t = (_left_jacobian(phi) @ rho[..., None])[..., 0]
     return make_T(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """log: (...,4,4) -> (...,6) twist [rho, phi]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    phi = so3_log(R)
+    rho = (_left_jacobian_inv(phi) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
 
 
 def inv_T(T: torch.Tensor) -> torch.Tensor:
@@ -143,3 +165,53 @@ def orthonormalize_T(T: torch.Tensor) -> torch.Tensor:
     c2 = torch.linalg.cross(c0, c1, dim=-1)
     Rn = torch.stack([c0, c1, c2], dim=-1)
     return make_T(Rn, T[..., :3, 3])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (...,4,4) to (...,N,3) points -> (...,N,3)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (...,3,3) -> quaternion (x, y, z, w), TUM order.
+
+    Branchless Shepperd's method: all four candidate encodings are
+    formed and the one with the largest pivot is kept (the first on a
+    tie, as ``jnp.argmax``), so it is safe for any rotation; the sign is
+    made canonical with w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    k = torch.argmax(pivots, dim=-1)
+    cand = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, (w, x, y, z))
+    q = torch.gather(cand, -2, k[..., None, None].expand(k.shape + (1, 4)))[..., 0, :]
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
+    q = q * torch.where(q[..., :1] < 0.0, -1.0, 1.0)
+    return torch.stack([q[..., 1], q[..., 2], q[..., 3], q[..., 0]], dim=-1)
+
+
+def quat_to_rot(q_xyzw: torch.Tensor) -> torch.Tensor:
+    """Quaternion (x, y, z, w) -> rotation matrix (...,3,3)."""
+    q = q_xyzw / torch.clamp(torch.linalg.norm(q_xyzw, dim=-1, keepdim=True), min=_EPS)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
+            torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -4,10 +4,11 @@ Port of the packing and point-action part of
 ``ydorbslam_tpu/geometry/sim3.py``: ``make_S``, ``split_S``, ``inv_S`` and
 ``transform_points_S``, and of its tangent-space maps for loop closing:
 ``sim3_exp``, ``sim3_log`` (through ``_sim3_W``) and the SE(3)
-conversions.  A similarity ``(s, R, t)`` is one (...,4,4) matrix
-``S = [[s*R, t], [0, 1]]`` acting on points as ``p' = s R p + t``; a
-tangent vector is ``zeta = [rho(3), phi(3), sigma(1)]`` with scale
-``s = exp(sigma)``.  Every function broadcasts over leading dimensions
+conversions ``sim3_to_se3`` and ``se3_to_sim3``.  A similarity
+``(s, R, t)`` is one (...,4,4) matrix ``S = [[s*R, t], [0, 1]]``
+acting on points as ``p' = s R p + t``; a tangent vector is
+``zeta = [rho(3), phi(3), sigma(1)]`` with scale ``s = exp(sigma)``.
+Every function broadcasts over leading dimensions
 and keeps its input's dtype, so ``tangent_jacobian`` can evaluate a
 residual at a whole stack of perturbations in float64 at once.
 """
@@ -104,6 +105,12 @@ def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:
     recovery step (optimizer.cpp:630-661)."""
     s, R, t = split_S(S)
     return make_T(R, t / torch.clamp(s[..., None], min=_EPS))
+
+
+def se3_to_sim3(T: torch.Tensor) -> torch.Tensor:
+    """An SE(3) matrix is already a Sim(3) with s = 1 (the same 4x4
+    packing)."""
+    return T
 
 
 def tangent_jacobian(f: Callable[[torch.Tensor], torch.Tensor], batch: Tuple[int, ...],

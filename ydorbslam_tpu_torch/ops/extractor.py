@@ -55,6 +55,28 @@ class FrameFeatures(NamedTuple):
     valid: torch.Tensor  # (N,) bool
 
 
+def empty_features(n: int, device="cuda") -> FrameFeatures:
+    """``n`` rows of no feature: zeros, ``right_u`` and ``depth`` -1,
+    ``valid`` False, on ``device`` (the card unless the caller asks for
+    another; without a card a CUDA request raises)."""
+    f32 = torch.float32
+
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    return FrameFeatures(
+        uv=full((n, 2), 0.0, f32),
+        uv_raw=full((n, 2), 0.0, f32),
+        response=full((n,), 0.0, f32),
+        octave=full((n,), 0, torch.int32),
+        angle=full((n,), 0.0, f32),
+        desc=full((n, 8), 0, torch.int32),
+        right_u=full((n,), -1.0, f32),
+        depth=full((n,), -1.0, f32),
+        valid=full((n,), False, torch.bool),
+    )
+
+
 def extract_orb(
     image: torch.Tensor,
     cam: CameraIntrinsics,

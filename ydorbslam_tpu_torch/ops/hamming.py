@@ -1,5 +1,6 @@
-"""Packed-descriptor Hamming distances, the rotation histogram, and the
-gated best/second searches K2 and K3 with their dispatchers.
+"""Packed-descriptor Hamming distances, the match primitives (best and
+second, the ratio test, the rotation histogram), and the gated
+best/second searches K2 and K3 with their dispatchers.
 
 Port of ``ydorbslam_tpu/ops/hamming.py`` plus the contracts of
 ``ydorbslam_tpu/ops/pallas_kernels.py::proj_best2_pallas`` (K2) and
@@ -48,6 +49,12 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance between (..., 8) int32-word
+    descriptors -> (...) int32."""
+    return torch.sum(popcount32(torch.bitwise_xor(a, b)), dim=-1).to(torch.int32)
+
+
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """(M, 8) x (N, 8) int32 words -> (M, N) int32 Hamming distances.
     One (M, N) temporary per word, not an (M, N, 8) one."""
@@ -73,6 +80,32 @@ def masked_distance_matrix(
     if pair_mask is not None:
         mask = mask & pair_mask
     return torch.where(mask, d, INVALID_DIST)
+
+
+def best_and_second(d: torch.Tensor) -> Best2:
+    """Per-row best and second-best of an (M, N) distance matrix, N >= 2:
+    (best_idx (M,) int32, best (M,), second (M,)).  The lowest column
+    wins a tie and a tied duplicate of the best is the second, as
+    ``jax.lax.top_k`` orders them."""
+    vals, idx = stable_topk(-d, 2)
+    return idx[:, 0].to(torch.int32), -vals[:, 0], -vals[:, 1]
+
+
+def ratio_test_matches(
+    d: torch.Tensor, max_dist: int, ratio: float | None = None, mutual: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Matches from an (M, N) distance matrix: (match_idx (M,) int32, -1
+    for no match; best_dist (M,)).  A match needs best <= ``max_dist``;
+    ``ratio`` also needs best < ratio * second, and ``mutual`` that the
+    row is its column's best (the first minimum of the column)."""
+    bi, b1, b2 = best_and_second(d)
+    ok = b1 <= max_dist
+    if ratio is not None:
+        ok = ok & (b1.to(torch.float32) < ratio * b2.to(torch.float32))
+    if mutual:
+        col_best = torch.argmin(d, dim=0)  # (N,)
+        ok = ok & (col_best[bi.to(torch.int64)] == torch.arange(d.shape[0], device=d.device))
+    return torch.where(ok, bi, -1), b1
 
 
 def proj_gates(
@@ -244,3 +277,18 @@ def rotation_histogram_mask(
     keep[0] = top_counts[0] > 0
     in_top = torch.any((bins[:, None] == top_bins[None, :]) & keep[None, :], dim=-1)
     return matched & in_top
+
+
+def filter_matches_by_rotation(
+    match_idx: torch.Tensor,
+    angle_a: torch.Tensor,
+    angle_b: torch.Tensor,
+    n_bins: int = 30,
+    keep_top: int = 3,
+) -> torch.Tensor:
+    """``rotation_histogram_mask`` applied to an (M,) match-index vector:
+    the matches outside the kept bins become -1."""
+    matched = match_idx >= 0
+    ang_b = angle_b[torch.clamp(match_idx.to(torch.int64), 0, angle_b.shape[0] - 1)]
+    keep = rotation_histogram_mask(angle_a, ang_b, matched, n_bins, keep_top)
+    return torch.where(keep, match_idx, -1)

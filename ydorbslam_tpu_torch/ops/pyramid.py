@@ -14,6 +14,11 @@ gather of the two source rows (or columns) and a lerp in float32:
 on the CPU and on the card.  Against XLA's CPU matmul the
 interpolated levels differ in the last bits (level 0 is the input,
 exact); ``tests/test_torch_ops.py`` states the bound.
+
+``gaussian_blur`` is the JAX package's separable 7x7 blur with
+reflect-101 edges (OpenCV's BORDER_REFLECT_101), written as two 1-D
+convolutions over a reflect-padded image, where the JAX package
+multiplies by dense (n, n) band matrices.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _resize_matrix(dst: int, src: int) -> np.ndarray:
@@ -95,6 +101,19 @@ def _gaussian_kernel_1d(ksize: int = 7, sigma: float = 2.0) -> np.ndarray:
     x = np.arange(-r, r + 1, dtype=np.float64)
     g = np.exp(-(x * x) / (2.0 * sigma * sigma))
     return (g / g.sum()).astype(np.float32)
+
+
+def gaussian_blur(image: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur of a float32 (H, W) image with reflect-101
+    edges; H and W must exceed ``ksize // 2``.  ``torch.backends.cudnn``
+    keeps TF32 off (the package's ``__init__``), so the card convolves
+    in float32."""
+    r = ksize // 2
+    g = torch.from_numpy(_gaussian_kernel_1d(ksize, sigma)).to(image.device)
+    x = F.pad(image[None, None], (0, 0, r, r), mode="reflect")
+    x = F.conv2d(x, g.reshape(1, 1, ksize, 1))
+    x = F.pad(x, (r, r, 0, 0), mode="reflect")
+    return F.conv2d(x, g.reshape(1, 1, 1, ksize))[0, 0]
 
 
 def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:

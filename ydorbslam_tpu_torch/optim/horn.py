@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..geometry.camera import CameraIntrinsics
+from ..geometry.camera import CameraIntrinsics, project
 from ..geometry.sim3 import inv_S, make_S
 
 
@@ -81,18 +81,13 @@ class Sim3RansacResult(NamedTuple):
     ok: torch.Tensor  # () bool
 
 
-def _project(cam: CameraIntrinsics, p: torch.Tensor) -> torch.Tensor:
-    z = torch.clamp(p[..., 2], min=1e-6)
-    return torch.stack([cam.fx * p[..., 0] / z + cam.cx, cam.fy * p[..., 1] / z + cam.cy], dim=-1)
-
-
 def _two_way_inliers(cam, S12, p1, p2, obs1, obs2, s2_1, s2_2, valid):
     """(..., N) two-way reprojection inliers of similarities S12 (..., 4, 4)."""
     S21 = inv_S(S12)
     p2_in_1 = p2 @ S12[..., :3, :3].transpose(-1, -2) + S12[..., None, :3, 3]
     p1_in_2 = p1 @ S21[..., :3, :3].transpose(-1, -2) + S21[..., None, :3, 3]
-    e1 = torch.sum((_project(cam, p2_in_1) - obs1) ** 2, dim=-1)
-    e2 = torch.sum((_project(cam, p1_in_2) - obs2) ** 2, dim=-1)
+    e1 = torch.sum((project(cam, p2_in_1) - obs1) ** 2, dim=-1)
+    e2 = torch.sum((project(cam, p1_in_2) - obs2) ** 2, dim=-1)
     return (valid & (e1 < 9.210 * s2_1) & (e2 < 9.210 * s2_2)
             & (p2_in_1[..., 2] > 0) & (p1_in_2[..., 2] > 0))
 
@@ -117,7 +112,7 @@ def ransac_sim3(
     if picks is None:
         picks = _draw(valid, (n_hypotheses, 3), generator)
     S_batch = horn_sim3(p1_cam[picks], p2_cam[picks], fix_scale=fix_scale)  # (B,4,4)
-    obs1, obs2 = _project(cam, p1_cam), _project(cam, p2_cam)
+    obs1, obs2 = project(cam, p1_cam), project(cam, p2_cam)
 
     def inliers(S):
         return _two_way_inliers(cam, S, p1_cam, p2_cam, obs1, obs2, sigma2_1, sigma2_2, valid)

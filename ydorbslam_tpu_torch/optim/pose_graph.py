@@ -12,13 +12,22 @@ under left-multiplied tangent perturbations of S_i and S_j.  The
 per-edge Jacobians come from the residual of every edge at all 14
 central-difference perturbations, in one float64 batch each for i and j
 (``geometry.sim3.tangent_jacobian``); the JAX package takes them with
-``jax.jacfwd``.  The normal equations are summed per vertex
-and per vertex pair with ``index_add_`` into a dense (7V, 7V) system
-solved by ``solve_ex``; fixed and invalid vertices get identity rows.
+``jax.jacfwd``.  The normal equations are summed per vertex pair
+into a dense (7V, 7V) system solved by ``solve_ex``; fixed and invalid
+vertices get identity rows.
+
+The sums go in a fixed order (``edge_segments``, ``assemble``): the
+edges' blocks are sorted once by their (row, column) vertex pair with a
+stable sort, and each pair's blocks are added by a segmented tree scan
+over the sorted rows, so a vertex pair's sum has the same bits on every
+run and every device.  A float ``index_add_`` on CUDA accumulates with
+atomics in an order that changes from run to run, and a loop closure's
+every later pose depends on this graph.  The JAX package sums with
+``jax.ops.segment_sum``, one result per input.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -60,6 +69,68 @@ def _edge_jacobians(S_meas, S_i, S_j, fix_scale: bool):
     return r, Ji, Jj
 
 
+class EdgeSegments(NamedTuple):
+    """The fixed summation order of an edge list (``edge_segments``).
+
+    Row e of the stacked blocks [H_ij; H_ij^T; H_ii; H_jj] (4E rows)
+    goes to vertex pair ``key[e]`` = row * V + column; ``order`` is the
+    stable sort of the keys, ``same[t]`` marks the sorted rows whose key
+    equals the key 2^t rows earlier, and ``dst`` is the pair each sorted
+    row writes: its key at the last row of its pair, else V * V (a
+    spare row that is dropped)."""
+
+    order: torch.Tensor  # (4E,) int64
+    same: Tuple[torch.Tensor, ...]  # (4E - 2^t,) bool per step t
+    dst: torch.Tensor  # (4E,) int64
+
+
+def edge_segments(ic: torch.Tensor, jc: torch.Tensor, V: int) -> EdgeSegments:
+    """The summation order of the edges (ic, jc), made once per graph:
+    the edge list does not change between iterations.  No host
+    synchronisation."""
+    key = torch.cat([ic * V + jc, jc * V + ic, ic * (V + 1), jc * (V + 1)])
+    order = torch.argsort(key, stable=True)
+    k = key[order]
+    n = k.shape[0]
+    same, s = [], 1
+    while s < n:
+        same.append(k[s:] == k[:-s])
+        s *= 2
+    last = torch.ones_like(k, dtype=torch.bool)
+    last[:-1] = k[1:] != k[:-1]
+    return EdgeSegments(order, tuple(same), torch.where(last, k, V * V))
+
+
+def assemble(seg: EdgeSegments, Ji, Jj, r, w, V: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """H (V, V, 7, 7) and b (V, 7) of the normal equations, summed per
+    vertex pair in ``seg``'s fixed order.  Ji, Jj (E, 7, 7) are the
+    residuals' Jacobians in the tangents of vertices i and j, r (E, 7)
+    the residuals and w (E,) the edge weights.  b rides in the diagonal
+    pairs' rows, so one scan sums both."""
+    E = r.shape[0]
+    w = w[:, None, None]
+    Hij = w * torch.einsum("eci,ecj->eij", Ji, Jj)
+    blocks = torch.cat([
+        Hij, Hij.transpose(-1, -2),
+        w * torch.einsum("eci,ecj->eij", Ji, Ji), w * torch.einsum("eci,ecj->eij", Jj, Jj),
+    ]).reshape(4 * E, 49)
+    bi = w[:, :, 0] * torch.einsum("eci,ec->ei", Ji, r)
+    bj = w[:, :, 0] * torch.einsum("eci,ec->ei", Jj, r)
+    rhs = torch.cat([torch.zeros((2 * E, 7), dtype=r.dtype, device=r.device), bi, bj])
+    x = torch.cat([blocks, rhs], dim=1)[seg.order]
+    s = 1
+    for same in seg.same:
+        # Inclusive scan within each pair: the rows 2^t back add in only
+        # where they carry the same pair (the keys are sorted).
+        x[s:] += torch.where(same[:, None], x[:-s], 0.0)
+        s *= 2
+    out = torch.zeros((V * V + 1, 56), dtype=x.dtype, device=x.device)
+    out.index_copy_(0, seg.dst, x)
+    out = out[:-1].reshape(V, V, 56)
+    ar = torch.arange(V, device=x.device)
+    return out[..., :49].reshape(V, V, 7, 7), out[ar, ar, 49:]
+
+
 def optimize_pose_graph(
     prob: PoseGraphProblem, iters: int = 20, fix_scale: bool = False
 ) -> torch.Tensor:
@@ -69,7 +140,8 @@ def optimize_pose_graph(
     dev = prob.S_iw.device
     ic = torch.clamp(prob.edge_i.to(torch.int64), 0, V - 1)
     jc = torch.clamp(prob.edge_j.to(torch.int64), 0, V - 1)
-    w = (prob.edge_valid.to(torch.float32) * prob.edge_weight)[:, None, None]
+    seg = edge_segments(ic, jc, V)
+    w = prob.edge_valid.to(torch.float32) * prob.edge_weight
     free = prob.vertex_valid & ~prob.fixed
     fm = free.to(torch.float32)
     ar = torch.arange(V, device=dev)
@@ -77,18 +149,7 @@ def optimize_pose_graph(
     S_all = prob.S_iw
     for _ in range(iters):
         r, Ji, Jj = _edge_jacobians(prob.edge_meas, S_all[ic], S_all[jc], fix_scale)
-        Hij = w * torch.einsum("eci,ecj->eij", Ji, Jj)
-        H_off = torch.zeros((V * V, 7, 7), device=dev)
-        H_off.index_add_(0, ic * V + jc, Hij)
-        H_off.index_add_(0, jc * V + ic, Hij.transpose(-1, -2))
-        H_diag = torch.zeros((V, 7, 7), device=dev)
-        H_diag.index_add_(0, ic, w * torch.einsum("eci,ecj->eij", Ji, Ji))
-        H_diag.index_add_(0, jc, w * torch.einsum("eci,ecj->eij", Jj, Jj))
-        b = torch.zeros((V, 7), device=dev)
-        b.index_add_(0, ic, w[:, :, 0] * torch.einsum("eci,ec->ei", Ji, r))
-        b.index_add_(0, jc, w[:, :, 0] * torch.einsum("eci,ec->ei", Jj, r))
-        H = H_off.reshape(V, V, 7, 7)
-        H[ar, ar] += H_diag
+        H, b = assemble(seg, Ji, Jj, r, w, V)
         H = H * fm[:, None, None, None] * fm[None, :, None, None]
         H[ar, ar] += torch.where(free, 1e-6, 1.0)[:, None, None] * eye7
         b = b * fm[:, None]

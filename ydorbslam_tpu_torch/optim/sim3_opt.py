@@ -17,9 +17,8 @@ from typing import Tuple
 
 import torch
 
-from ..geometry.camera import CameraIntrinsics
+from ..geometry.camera import CameraIntrinsics, project
 from ..geometry.sim3 import inv_S, sim3_exp, tangent_jacobian
-from .horn import _project
 
 CHI2 = 9.999  # reference threshold for sim3 edges (optimizer.cpp:751 ~ 10)
 
@@ -31,7 +30,7 @@ def _residuals(cam: CameraIntrinsics, S12, p1_cam, p2_cam, obs1, obs2):
     p2_in_1 = p2_cam @ S12[..., :3, :3].transpose(-1, -2) + S12[..., None, :3, 3]
     p1_in_2 = p1_cam @ S21[..., :3, :3].transpose(-1, -2) + S21[..., None, :3, 3]
     return torch.cat(
-        [_project(cam, p2_in_1) - obs1, _project(cam, p1_in_2) - obs2], dim=-1
+        [project(cam, p2_in_1) - obs1, project(cam, p1_in_2) - obs2], dim=-1
     )
 
 

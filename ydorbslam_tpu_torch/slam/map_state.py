@@ -84,7 +84,7 @@ class MapState(NamedTuple):
         return self.kf_pose.device
 
 
-def empty_map(K: int, N: int, M: int, O: int, device="cpu") -> MapState:
+def empty_map(K: int, N: int, M: int, O: int, device="cuda") -> MapState:
     f32, i32 = torch.float32, torch.int32
 
     def full(shape, v, dtype):

@@ -94,7 +94,7 @@ class RetrievalIndex(NamedTuple):
 
 
 def empty_index(K: int, n_banks: int = N_BANKS, bank_bits: int = BANK_BITS,
-                device="cpu") -> RetrievalIndex:
+                device="cuda") -> RetrievalIndex:
     n_words = n_banks * (1 << bank_bits)
     return RetrievalIndex(
         hist=torch.zeros((K, n_words), dtype=torch.float32, device=device),
@@ -124,6 +124,13 @@ def remove_keyframes(idx: RetrievalIndex, kf_ids: torch.Tensor) -> RetrievalInde
         presence=scatter_set(idx.presence, rows, 0.0),
         valid=scatter_set(idx.valid, rows, False),
     )
+
+
+def remove_keyframe(idx: RetrievalIndex, kf_id) -> RetrievalIndex:
+    """KeyFrameDatabase::erase of one keyframe: ``remove_keyframes`` with
+    one id."""
+    return remove_keyframes(idx, torch.full((1,), kf_id, dtype=torch.int64,
+                                            device=idx.valid.device))
 
 
 def _sum_f32(x: torch.Tensor) -> torch.Tensor:

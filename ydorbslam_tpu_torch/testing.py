@@ -5,7 +5,8 @@ numpy arrays (random, tie-heavy, none or exactly one column passing),
 which ``tests/test_torch_best2_merge.py`` feeds to the plain versions on
 the CPU and ``chip_smoke.py`` and ``tools/time_kernels.py`` to the
 kernels on the card; ``lm_obs_problem`` makes a seeded K4 input for the
-last two.  ``wall_ms`` and ``device_ms`` time a call on the card with
+last two, and ``pose_graph_problem`` a seeded essential graph with
+duplicate edges and high degrees.  ``wall_ms`` and ``device_ms`` time a call on the card with
 and without the host's dispatch.  ``make_stereo_frames`` renders the
 stereo workload: a rectified pair sequence at the KITTI-00 camera.
 ``write_tum_sequence`` writes RGB-D frames to disk as a TUM sequence
@@ -173,6 +174,15 @@ def pair_problem(rng, B, M, N, mode, kind="random"):
         ab.astype(np.float32)
 
 
+def _rodrigues(w):
+    """(n, 3) rotation vectors -> (n, 3, 3) rotation matrices, float64."""
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    k = np.zeros((w.shape[0], 3, 3))
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    k = (k - k.transpose(0, 2, 1)) / th
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
 def lm_obs_problem(rng, O, P, C=96):
     """A K4 input as a (32, O, P) float32 numpy array with the rows I_* of
     ``optim/lm_kernel.py``: O observations of each of P points from C
@@ -181,12 +191,7 @@ def lm_obs_problem(rng, O, P, C=96):
     many residuals are large and Huber is active), right-x from a 50
     px*m baseline, 8 scale levels, 70 % stereo, 80 % valid, Huber on,
     the fr1-desk-like camera of ``bench.make_system``."""
-    w = rng.normal(0, 0.1, (C, 3))
-    th = np.linalg.norm(w, axis=1)[:, None, None]
-    k = np.zeros((C, 3, 3))
-    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
-    k = (k - k.transpose(0, 2, 1)) / th
-    rot = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k  # Rodrigues
+    rot = _rodrigues(rng.normal(0, 0.1, (C, 3)))
     cam = rng.integers(0, C, (O, P))
     inp = np.zeros((32, O, P), np.float32)
     inp[0:9] = rot[cam].reshape(O, P, 9).transpose(2, 0, 1)
@@ -203,6 +208,50 @@ def lm_obs_problem(rng, O, P, C=96):
     inp[21] = 1.0
     inp[22:27] = np.array([500.0, 500.0, 320.0, 240.0, 50.0])[:, None, None]
     return inp
+
+
+def pose_graph_problem(rng, V, n_offsets, n_extra, n_dup):
+    """An essential graph as numpy arrays with the fields of
+    ``optim.pose_graph.PoseGraphProblem``: V keyframes on a 5 m circle,
+    looking about inward, whose estimates drift by up to ~0.2 m and
+    ~0.06 rad; an edge from every keyframe to each of the next
+    ``n_offsets`` around the circle (every vertex has degree
+    2 * n_offsets), ``n_extra`` edges between random pairs and ``n_dup``
+    repeats of earlier edges (half of them reversed), each measured from
+    the true poses with ~2 mm and ~1 mrad of noise; vertex 0 fixed, unit
+    weights, all valid.  Returns (problem dict, true poses (V, 4, 4))."""
+    ang = 2 * np.pi * np.arange(V) / V
+    w_true = np.stack([0.1 * np.sin(3 * ang), -ang, 0.1 * np.cos(2 * ang)], -1)
+    c_true = np.stack([5 * np.cos(ang), 0.3 * np.sin(2 * ang), 5 * np.sin(ang)], -1)
+    T_true = np.tile(np.eye(4), (V, 1, 1))
+    T_true[:, :3, :3] = _rodrigues(w_true)
+    T_true[:, :3, 3] = -np.einsum("vij,vj->vi", T_true[:, :3, :3], c_true)
+    drift = np.linspace(0.0, 1.0, V)[:, None]
+    T_est = np.tile(np.eye(4), (V, 1, 1))
+    T_est[:, :3, :3] = _rodrigues(drift * np.array([0.02, 0.05, -0.03])
+                                  + rng.normal(0, 1e-3, (V, 3))) @ T_true[:, :3, :3]
+    T_est[:, :3, 3] = T_true[:, :3, 3] + drift * np.array([0.1, -0.05, 0.15]) \
+        + rng.normal(0, 2e-3, (V, 3))
+    T_est[0] = T_true[0]
+    ei = np.concatenate([np.arange(V)] * n_offsets)
+    ej = np.concatenate([(np.arange(V) + o) % V for o in range(1, n_offsets + 1)])
+    extra_i = rng.integers(0, V, n_extra)
+    extra_j = (extra_i + rng.integers(1, V, n_extra)) % V
+    ei, ej = np.concatenate([ei, extra_i]), np.concatenate([ej, extra_j])
+    dup = rng.integers(0, ei.shape[0], n_dup)
+    rev = np.arange(n_dup) % 2 == 1
+    ei, ej = (np.concatenate([ei, np.where(rev, ej[dup], ei[dup])]),
+              np.concatenate([ej, np.where(rev, ei[dup], ej[dup])]))
+    E = ei.shape[0]
+    noise = np.tile(np.eye(4), (E, 1, 1))
+    noise[:, :3, :3] = _rodrigues(rng.normal(0, 1e-3, (E, 3)))
+    noise[:, :3, 3] = rng.normal(0, 2e-3, (E, 3))
+    meas = noise @ T_true[ei] @ np.linalg.inv(T_true[ej])
+    prob = dict(S_iw=T_est.astype(np.float32), fixed=np.arange(V) == 0,
+                vertex_valid=np.ones(V, bool), edge_i=ei.astype(np.int32),
+                edge_j=ej.astype(np.int32), edge_meas=meas.astype(np.float32),
+                edge_valid=np.ones(E, bool), edge_weight=np.ones(E, np.float32))
+    return prob, T_true
 
 
 def on_device(dev, arrays):
