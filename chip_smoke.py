@@ -170,6 +170,43 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      inputs against the port's own CPU result, integer and bool outputs
      identical, floats at the tolerances of ``tests/test_torch_api.py``
      (1e-5; ``se3_log`` near pi 1e-4; ``gaussian_blur`` 1e-3 absolute).
+ 17. the pipelined RGB-D path at bench.py's configuration and call
+     sequence: ``chip_smoke._config()``, ``enable_pipelined(lag=16)``,
+     ``precompile()``, then ``bench.make_frames()`` as ``bench.run``
+     feeds them (20 warm-up frames, ``flush_pipeline``, the other 100,
+     ``shutdown``), loop closing off.  Gates, against the JAX package's
+     run on a CPU (``tools/jax_pipelined_reference.py``): frames 0-38
+     (before the first drain that inserts a burst of keyframes) tracked,
+     asking for and inserting keyframes as in JAX's trace, inliers within
+     2; from frame 39 on, where the reference's outcome is a spread (see
+     ``JAX_CPU_PIPE_LOST_MAX``), lost frames no more than JAX's most and
+     the TUM-file ATE within 1.5x of JAX's largest under one-ulp nudges of
+     the burst BA's input, every run of lost frames recovered by the
+     relocalization of its drain (at most ``PIPE_LAG`` frames), the last
+     frame tracked, keyframes within ``TUM_KF_BAND`` of JAX's; the burst's
+     drain (its ``mapping_prep`` calls and deferred BA, captured on the
+     card in the repeat run) again on the CPU from the card's inputs, call
+     by call, at the bounds of ``BURST_GRAPH``'s comment;
+     K1 exactly once and K2 exactly 3 times per frame (plus what a
+     relocalization launches), K3 3x per ``mapping_prep`` and K4 17x per
+     deferred local BA; a second run of frames 0-59 in the same call gives
+     the same per-frame outcomes (the packed info rows) and insertions bit
+     for bit, and in it the host waits on the card (CUDA's sync debug
+     mode) 0 times in every frame's dispatch and no more than
+     ``PIPE_SYNC_MAX`` in each part of a drain, each wait's call site
+     printed; the first 30 frames again on a CPU ``SlamSystem``: the same
+     lost frames and insertions, track-time camera centres within 1e-3 m.
+     It prints frames/s as bench.py computes it (the dispatches of frames
+     20-119 plus the final flush), the median dispatch and drain ms, each
+     deferred BA's synchronised ms, the ``perf`` terms per frame and the
+     precompile seconds.
+ 18. the TUM runner with ``--pipelined`` (lag 16) on phase 15's directory
+     at ``load_config``'s capacities with loop closing on, the launch
+     counts set to 0 after its ``precompile()``.  Gates: 0 lost; the ATE
+     under 0.02 m and within 1.5x of the JAX package's own runner with
+     ``--pipelined`` on a CPU; keyframes within ``TUM_KF_BAND`` of JAX's;
+     the loops closed equal to JAX's; K1 once and K2 at least 3 times per
+     frame, K3 3x per ``mapping_prep``, K4 17x per deferred BA.
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -181,8 +218,10 @@ card's own work back to back.
 It prints one JSON line with every kernel's name, route, source, the
 TPU kernel it replaces, launches in the main path (phase 8), in the
 loop path of phase 13 (``loop_launches``), in the stereo path of
-phase 14 (``stereo_launches``) and in the TUM runner's run of phase 15
-(``tum_launches``), max abs
+phase 14 (``stereo_launches``), in the TUM runner's run of phase 15
+(``tum_launches``), in the pipelined path of phase 17
+(``pipe_launches``) and in the pipelined runner of phase 18
+(``tum_pipe_launches``), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
 levels, one launch) and that of the plain version, the bound on that
 input (the larger of its bytes over 3.35 TB/s and its operations over
@@ -280,6 +319,78 @@ N_TUM_SAVE = 60  # frames tracked before the checkpoint
 RESUME_ATE_MIN = 0.03  # m: tests/test_serialize_viz.py's resume bound, max(2x, this)
 RESUME_CENTRE_MAX = 1e-3  # m: resumed camera centres against the uninterrupted run's
 TUM_CALIB_FX = 501.0  # fx of the settings file of the re-calibration
+# Phase 17: the pipelined path at bench.py's configuration and call
+# sequence (bench.make_system: enable_pipelined(lag=16), precompile();
+# bench.run: 20 warm-up frames, flush_pipeline, the other 100, shutdown)
+# over bench.make_frames(), and the JAX package's figures on the same run
+# on a CPU (tools/jax_pipelined_reference.py, part "bench").
+PIPE_LAG = 16
+JAX_CPU_ATE_PIPE = 0.006090578712869592
+JAX_CPU_LOST_PIPE = 0
+JAX_CPU_KF_PIPE = 31
+# JAX's frame trace of that run through frame 38, the last frame whose step
+# runs on the map of the drains before the first burst (the drain after
+# frame 38 inserts 7 keyframes, frames 26-38, and runs a deferred BA):
+# inliers per frame, the frames that asked for a keyframe, the frames
+# inserted; all 39 tracked.
+N_PIPE_SAME = 39
+JAX_CPU_PIPE_INLIERS = (
+    934, 426, 386, 361, 383, 367, 380, 362, 376, 367, 365, 371, 356, 356, 368, 393, 390, 411,
+    424, 423, 387, 373, 387, 360, 352, 353, 328, 319, 330, 310, 305, 322, 330, 313, 321, 317,
+    316, 343, 341)
+JAX_CPU_PIPE_NEED = (0, 3) + tuple(range(26, 39))
+JAX_CPU_PIPE_INSERTED = (0, 3, 26, 28, 30, 32, 34, 36, 38)
+# From frame 39 on the reference's own outcome is a spread, not a figure:
+# the burst's deferred BA is chaotic in the JAX package (one ulp more in one
+# coordinate of one map point of its input moves JAX's keyframe poses by
+# centimetres and its points by a median of decimetres,
+# tests/test_torch_pipeline_burst.py), and how far it flings the points
+# decides frame 39's local-map inliers (JAX 45, or 387 with one depth unit
+# more at one pixel of frame 10) and whether frames fall below the gate of
+# 30 until the next drain relocalizes.  JAX's run with that one-ulp nudge
+# of the burst BA's input, six seeds, and with other frames perturbed
+# (tools/pipelined_divergence.py): the most frames lost and the largest
+# TUM-file ATE among them and the unperturbed run.  Nudge seeds 0-5:
+# frame 39 at 150 / 32 / 20 / 195 / 385 / 379 inliers, 0 / 0 / 26 / 0 / 0 / 0
+# frames lost, ATE 0.0026 / 0.0143 / 0.0645 / 0.0022 / 0.0022 / 0.0021 m;
+# one depth unit more at one pixel of frame 5 or 10: 0 lost, 0.0070 / 0.0021 m.
+JAX_CPU_PIPE_LOST_MAX = 26
+JAX_CPU_PIPE_ATE_MAX = 0.06452236424765251
+N_PIPE_REPEAT = 60  # frames of the repeat run: the burst, its relocalization and snapshot read
+N_PAR_PIPE = 30  # CPU parity frames
+PIPE_TOL_M = 1e-3  # m, card against CPU track-time camera centres
+# The burst's drain replayed on the CPU from the card's inputs, call by call
+# (the first deferred BA of the repeat run and the mapping_prep calls of its
+# drain): the keyframe graph and the point counters exact, the bindings at
+# tests/test_torch_mapping_system's 99.5 %, the map points' median within
+# 1e-3 m and every point within PIPE_PREP_MAX_M (the low-parallax
+# triangulations of keyframes two frames apart differ by up to 2 cm between
+# the JAX package and the port, tests/test_torch_pipeline_burst.py); the
+# deferred BA's floats within 1.5x of what the card itself gives from
+# N_BURST_NUDGE one-ulp nudges of the same input (pose entries, points'
+# median and 90th percentile).
+BURST_GRAPH = ("kf_valid", "kf_frame_id", "parent", "covis", "mp_first_kf", "mp_found",
+               "mp_visible")
+BURST_BINDINGS = ("kf_mp", "mp_obs_kf", "mp_valid")
+PIPE_PREP_MAX_M = 0.05
+N_BURST_NUDGE = 6
+# The host's waits on the card allowed per call, as CUDA's sync debug mode
+# counts them (a counted call inside another keeps its own count): a
+# frame's dispatch (the device step) none; a drain's own body the read of
+# the ring's packed outcomes; reading a deferred BA's snapshot one; a
+# keyframe insertion none; the deferred BA none; a tracking-set refresh
+# one (the nearest keyframe's index); a relocalization reads where the JAX
+# package's does (candidates, match counts, RANSAC verdicts, inliers): 10,
+# as measured on an H100.
+PIPE_SYNC_MAX = {"dispatch": 0, "drain": 1, "snapshot": 1, "insert": 0, "ba": 0, "refresh": 1,
+                 "reloc": 10}
+# Phase 18: the TUM runner with --pipelined (lag 16) on phase 15's
+# directory, at load_config's capacities with loop closing on, and the JAX
+# package's own runner with --pipelined on the same directory on a CPU
+# (tools/jax_pipelined_reference.py, part "tum").
+JAX_CPU_ATE_TUM_PIPE = 0.002095937215097471
+JAX_CPU_KF_TUM_PIPE = 33
+JAX_CPU_LOOPS_TUM_PIPE = 0
 
 
 def _bound(nbytes, lane_ops, popc=0.0):
@@ -1537,6 +1648,483 @@ def _phase15(smi, report):
     tmp.cleanup()
 
 
+def _map_diff(a, b):
+    """How far two host maps (``map_state_to_numpy``) of one call lie
+    apart: the keyframe-graph and counter fields that differ, the least
+    share of equal bindings, and (largest keyframe-pose entry difference,
+    median, 90th percentile and largest map-point difference in m)."""
+    import numpy as np
+
+    graph = [k for k in BURST_GRAPH if not np.array_equal(a[k], b[k])]
+    bind = min(float((a[k] == b[k]).mean()) for k in BURST_BINDINGS)
+    kv = a["kf_valid"] & b["kf_valid"]
+    both = a["mp_valid"] & b["mp_valid"]
+    d = np.linalg.norm(a["mp_pos"] - b["mp_pos"], axis=-1)[both]
+    return graph, bind, np.array([np.abs(a["kf_pose"] - b["kf_pose"])[kv].max(), np.median(d),
+                                  np.quantile(d, 0.9), d.max()])
+
+
+def _nudged(m, seed):
+    """Host map ``m`` with one coordinate of one valid map point, drawn from
+    ``default_rng(seed)``, one ulp larger."""
+    import numpy as np
+
+    m = {k: v.copy() for k, v in m.items()}
+    rng = np.random.default_rng(seed)
+    ids = np.nonzero(m["mp_valid"])[0]
+    j, c = ids[rng.integers(len(ids))], rng.integers(3)
+    m["mp_pos"][j, c] = np.nextafter(m["mp_pos"][j, c], np.float32(np.inf))
+    return m
+
+
+def _bench_run(system, frames, n_warm=N_WARM):
+    """bench.run's call sequence: ``n_warm`` frames, ``flush_pipeline``,
+    ``perf`` cleared, the other frames each timed to the end of its
+    dispatch, then ``shutdown`` timed.  Returns (dispatch seconds of the
+    timed frames, whether each drained, shutdown seconds)."""
+    for f in frames[:n_warm]:
+        system.track_rgbd_pipelined(*f)
+    system.flush_pipeline()
+    system.perf.clear()
+    secs, drained = [], []
+    for f in frames[n_warm:]:
+        t0 = time.perf_counter()
+        system.track_rgbd_pipelined(*f)
+        secs.append(time.perf_counter() - t0)
+        drained.append(not system._pending)
+    t0 = time.perf_counter()
+    system.shutdown()
+    return secs, drained, time.perf_counter() - t0
+
+
+def _phase17(smi, report):
+    """Phase 17: the pipelined RGB-D path at bench.py's configuration on
+    the card, a repeat of frames 0-59 in the same call, the first 30
+    frames again on the CPU.  Fills ``report[k]["pipe_launches"]``; any
+    gate that fails raises."""
+    import numpy as np
+    import torch
+
+    import bench
+    from ydorbslam_tpu_torch.convert import map_state_from_numpy, map_state_to_numpy
+    from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.slam import mapping as mapping_mod
+    from ydorbslam_tpu_torch.slam import system as system_mod
+    from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
+
+    frames = bench.make_frames()
+    from synthetic import oscillating_trajectory  # bench put tests/ on sys.path
+
+    gt = _centres(oscillating_trajectory(len(frames)))
+    Sys = SlamSystem
+    counted_parts = (("dispatch", "track_rgbd_pipelined"), ("drain", "_drain_batch"),
+                     ("snapshot", "_consume_snapshot"), ("insert", "_insert_keyframe"),
+                     ("ba", "_run_deferred_ba"), ("refresh", "_refresh_trkset"),
+                     ("reloc", "_pipelined_relocalize"))
+    orig = {k: getattr(Sys, a) for k, a in counted_parts + (("one", "_drain_one"),)}
+    orig_fn = {"prep": system_mod.mapping_prep, "finish": system_mod.mapping_finish}
+    rec = {"count": False, "infos": [], "ba_ms": [], "calls": {"prep": 0, "finish": 0},
+           "capture": False, "drain_calls": [], "burst": None}
+    waits = {k: [] for k in PIPE_SYNC_MAX}
+    sites = {k: {} for k in PIPE_SYNC_MAX}
+    drained_waits = []  # the dispatch's own waits on the dispatches that drained
+
+    def quiet_sync():
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(mode)
+
+    def counted(fn, key):
+        """Count the host's waits on the card inside ``fn`` with CUDA's sync
+        debug mode while ``rec["count"]`` is on."""
+        def wrapper(self, *args, **kwargs):
+            if key == "drain":
+                rec["drain_calls"] = []
+            if not rec["count"]:
+                return fn(self, *args, **kwargs)
+            mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(self, *args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                    found = [w for w in seen if SYNC_WARNING in str(w.message)]
+                    if key == "dispatch" and not self._pending:
+                        drained_waits.append(len(found))
+                    else:
+                        waits[key].append(len(found))
+                    for w in found:
+                        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                        sites[key][site] = sites[key].get(site, 0) + 1
+        return wrapper
+
+    def reloc(self, timestamp, slot):
+        """A relocalization, with the K2 launches it makes (its appearance
+        matches and widening searches, beside the 3 per frame)."""
+        before = kernels.launch_counts()["proj_best2"]
+        try:
+            return orig_reloc(self, timestamp, slot)
+        finally:
+            rec["reloc_k2"] += kernels.launch_counts()["proj_best2"] - before
+
+    def drain_one(self, timestamp, info, allow_reloc=True):
+        rec["infos"].append((info.mode, info.ok, info.n_inliers, info.need_kf, info.ring_slot,
+                             info.T_cw.tobytes()))
+        return orig["one"](self, timestamp, info, allow_reloc)
+
+    def host_map(m):
+        """A host copy of a map, not counted as a wait of the path."""
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return m.cpu().numpy() if isinstance(m, torch.Tensor) else map_state_to_numpy(m)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def prep(*args, **kwargs):
+        rec["calls"]["prep"] += 1
+        if not rec["capture"]:
+            return orig_fn["prep"](*args, **kwargs)
+        before = host_map(args[0])
+        out = orig_fn["prep"](*args, **kwargs)
+        rec["drain_calls"].append(dict(kind="prep", map=before, args=args[1:], kw=kwargs,
+                                       out=host_map(out)))
+        return out
+
+    def finish(*args, **kwargs):
+        rec["calls"]["finish"] += 1
+        if rec["capture"]:
+            # The run's first deferred BA and the mapping_prep calls of its
+            # drain: the burst after frame 38.
+            before = host_map(args[0])
+            out = orig_fn["finish"](*args, **kwargs)
+            rec["burst"] = rec["drain_calls"] + [dict(
+                kind="finish", map=before, args=args[1:], kw=kwargs, out=host_map(out[0]),
+                snap=host_map(out[1]))]
+            rec["capture"] = False
+            return out
+        if rec["count"]:
+            return orig_fn["finish"](*args, **kwargs)
+        quiet_sync()
+        t0 = time.perf_counter()
+        out = orig_fn["finish"](*args, **kwargs)
+        quiet_sync()
+        rec["ba_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def make(device):
+        system = SlamSystem(_config(), Sensor.RGBD, enable_mapping=True,
+                            enable_loop_closing=False, device=device)
+        system.enable_pipelined(lag=PIPE_LAG)
+        system.frame_trace = []
+        return system
+
+    def run(system, frames, count=False):
+        rec.update(count=count, capture=count, infos=[], ba_ms=[], reloc_k2=0)
+        for k in rec["calls"]:
+            rec["calls"][k] = 0
+        kernels.reset_launch_counts()
+        out = _bench_run(system, frames)
+        return (out, kernels.launch_counts(), list(rec["infos"]),
+                dict(rec["calls"], reloc_k2=rec["reloc_k2"]))
+
+    try:
+        for k, a in counted_parts:
+            setattr(Sys, a, counted(orig[k], k))
+        orig_reloc = Sys._pipelined_relocalize
+        Sys._pipelined_relocalize = reloc
+        Sys._drain_one = drain_one
+        system_mod.mapping_prep, system_mod.mapping_finish = prep, finish
+
+        # A: the gated run, timed as bench.py times it.
+        system = make("cuda")
+        t0 = time.perf_counter()
+        system.precompile()
+        pre_s = time.perf_counter() - t0
+        (secs, drained, flush_s), launches, infos, calls = run(system, frames)
+        perf = {k: v / len(secs) * 1e3 for k, v in system.perf.items()}
+        stats = system.run_stats()
+        trace = [t[1:] for t in system.frame_trace]
+        last_tracked = not system.records[-1].lost
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "CameraTrajectory.txt")
+            system.save_trajectory_tum(path)
+            ts, pos_tum, _ = read_tum_trajectory(path)
+        frame_of = {t: i for i, (t, _, _) in enumerate(frames)}
+        rows = [frame_of[min(frame_of, key=lambda x: abs(x - t))] for t in ts]
+        ate = ate_rmse(pos_tum, gt[rows])
+        ba_ms = list(rec["ba_ms"])
+        del system
+
+        # B: frames 0-59 again in this call, the host's waits counted.
+        system = make("cuda")
+        system.precompile()
+        _, _, infos_b, _ = run(system, frames[:N_PIPE_REPEAT], count=True)
+        trace_b = [t[1:] for t in system.frame_trace]
+        burst = rec["burst"]
+        del system
+    finally:
+        for k, a in counted_parts + (("one", "_drain_one"),):
+            setattr(Sys, a, orig[k])
+        system_mod.mapping_prep, system_mod.mapping_finish = orig_fn["prep"], orig_fn["finish"]
+
+    # The CPU: the first 30 frames in bench.run's sequence.
+    cpu = make("cpu")
+    cpu_infos = []
+    orig_one = Sys._drain_one
+    try:
+        Sys._drain_one = lambda self, t, info, allow_reloc=True: (
+            cpu_infos.append(info), orig_one(self, t, info, allow_reloc))[1]
+        _bench_run(cpu, frames[:N_PAR_PIPE])
+    finally:
+        Sys._drain_one = orig_one
+    cpu_trace = [t[1:] for t in cpu.frame_trace]
+    card_T = [np.frombuffer(i[5]).reshape(4, 4) for i in infos[:N_PAR_PIPE]]
+
+    # The burst's drain again on the CPU from the card's inputs, call by
+    # call; the deferred BA also on the card from one-ulp nudges of its input.
+    burst_rows, prep_ok = [], True
+    t_replay = time.perf_counter()
+    for c in burst or []:
+        src = map_state_from_numpy(c["map"])
+        if c["kind"] == "prep":
+            kf_id, kf_count, _ = c["args"]
+            out = map_state_to_numpy(mapping_mod.mapping_prep(src, kf_id, kf_count, cpu.cam,
+                                                              **c["kw"]))
+            graph, bind, d = _map_diff(out, c["out"])
+            prep_ok &= not graph and bind > 0.995 and d[1] < 1e-3 and d[3] < PIPE_PREP_MAX_M
+            burst_rows.append((kf_id, graph, bind, d))
+            continue
+        kf_id, cam, tab, thr = c["args"]
+        m, snap = mapping_mod.mapping_finish(src, kf_id, cpu.cam, cpu.inv_sigma2_tab, thr.cpu(),
+                                             **c["kw"])
+        ba_graph, ba_bind, ba_d = _map_diff(map_state_to_numpy(m), c["out"])
+        K = len(c["out"]["kf_valid"])
+        ba_snap = np.array_equal(snap[:4 * K].numpy(), c["snap"][:4 * K])
+        spread = np.zeros(4)
+        for seed in range(N_BURST_NUDGE):
+            nudged = map_state_from_numpy(_nudged(c["map"], seed), device=thr.device)
+            out = mapping_mod.mapping_finish(nudged, kf_id, cam, tab, thr, **c["kw"])[0]
+            spread = np.maximum(spread, _map_diff(map_state_to_numpy(out), c["out"])[2])
+    t_replay = time.perf_counter() - t_replay
+    cpu_diff = float(np.abs(_centres([i.T_cw for i in cpu_infos]) - _centres(card_T)).max())
+    same_cpu = [(t[1], t[4]) for t in cpu_trace] == [(t[1], t[4]) for t in trace[:N_PAR_PIPE]]
+
+    n = len(frames)
+    lost = stats["frames_lost"]
+    steady = secs
+    fps = len(steady) / (sum(steady) + flush_s)
+    disp = [s for s, d in zip(steady, drained) if not d]
+    drains = [s for s, d in zip(steady, drained) if d]
+    same_b = infos_b == infos[:N_PIPE_REPEAT] and trace_b == trace[:N_PIPE_REPEAT]
+    n_prep, n_fin = calls["prep"], calls["finish"]
+    print(f"phase 17 pipelined path (bench.py's configuration: lag {PIPE_LAG}, precompile, "
+          f"{N_WARM} warm-up frames, flush, {n - N_WARM} frames, shutdown): {n} frames, lost "
+          f"{lost} (JAX on a CPU {JAX_CPU_LOST_PIPE}, at most {JAX_CPU_PIPE_LOST_MAX} perturbed), "
+          f"TUM rows {len(ts)}, ATE {ate:.6f} m (JAX on a CPU {JAX_CPU_ATE_PIPE}, at most "
+          f"{JAX_CPU_PIPE_ATE_MAX} perturbed), keyframes inserted "
+          f"{stats['keyframes_inserted']} (JAX {JAX_CPU_KF_PIPE}) culled "
+          f"{stats['keyframes_culled']} live {stats['keyframes_live']}, mapping_prep {n_prep}, "
+          f"deferred local BAs {n_fin} "
+          f"(stats {stats['local_ba_runs']}), live map points {stats['map_points_live']}, "
+          f"launches {launches}; {fps:.3f} frames/s as bench.py computes it (dispatches of "
+          f"frames {N_WARM}-{n - 1} plus the final flush {flush_s * 1e3:.1f} ms), median "
+          f"dispatch {float(np.median(disp)) * 1e3:.3f} ms ({len(disp)} not draining), median "
+          f"drain {float(np.median(drains)) * 1e3 if drains else float('nan'):.3f} ms "
+          f"({len(drains)} drains), deferred BA {[round(v, 3) for v in ba_ms]} ms "
+          f"(synchronised), perf per frame ms "
+          f"{({k: round(v, 3) for k, v in sorted(perf.items())})}, precompile {pre_s:.2f} s "
+          f"| {smi}", flush=True)
+    print(f"phase 17 frame trace of the run: lost {[i for i, t in enumerate(trace) if not t[1]]} "
+          f"({stats['reloc_successes']} relocalizations, {calls['reloc_k2']} K2 launches in "
+          f"them), inserted {[i for i, t in enumerate(trace) if t[4]]}, inliers "
+          f"{[t[2] for t in trace]}; frames 0-{N_PIPE_SAME - 1} against JAX's trace: inliers "
+          f"apart by at most "
+          f"{max(abs(t[2] - j) for t, j in zip(trace, JAX_CPU_PIPE_INLIERS))}", flush=True)
+    print(f"phase 17 host waits on the card (CUDA sync debug mode, repeat run of frames 0-"
+          f"{N_PIPE_REPEAT - 1}; max per call, calls): "
+          + ", ".join(f"{k} {max(v, default=0)} ({len(v)})" for k, v in waits.items())
+          + f", dispatches that drained (their own) {max(drained_waits, default=0)} "
+          f"({len(drained_waits)}); sites {sites}", flush=True)
+    print("phase 17 burst drain (the first deferred BA's, frame 38's) on the CPU from the card's "
+          "inputs, call by call: mapping_prep on keyframe k: graph fields that differ, least "
+          "share of equal bindings, points' median / largest difference (m): "
+          + "; ".join(f"k {k}: {g or 'none'}, {b:.5f}, {d[1]:.3e} / {d[3]:.3e}"
+                      for k, g, b, d in burst_rows)
+          + (f"; deferred BA: graph {ba_graph or 'none'}, bindings {ba_bind:.5f}, snapshot rows "
+             f"{'equal' if ba_snap else 'DIFFERENT'}, pose entry / points' median / 90th "
+             f"percentile / largest difference {[float(f'{v:.4g}') for v in ba_d]} against the "
+             f"card's own spread under {N_BURST_NUDGE} one-ulp nudges of its input "
+             f"{[float(f'{v:.4g}') for v in spread]}" if burst else " (NO burst captured)")
+          + f"; replay {t_replay:.1f} s", flush=True)
+    print(f"phase 17 repeat of frames 0-{N_PIPE_REPEAT - 1} in this call: per-frame outcomes "
+          f"{'bit-equal' if same_b else 'DIFFERENT'} ({len(infos_b)} rows); CPU parity over "
+          f"frames 0-{N_PAR_PIPE - 1}: lost and insertions "
+          f"{'identical' if same_cpu else 'DIFFERENT'} (CPU {cpu_trace}), max track-time "
+          f"camera-centre difference {cpu_diff:.3e} m", flush=True)
+    if stats["frames_total"] != n or len(ts) + lost != n or not np.isfinite(pos_tum).all():
+        raise AssertionError(f"pipelined path: {stats['frames_total']} records, {len(ts)} rows")
+    head = trace[:N_PIPE_SAME]
+    if [t[1] for t in head] != [True] * N_PIPE_SAME or \
+            [i for i, t in enumerate(head) if t[3]] != list(JAX_CPU_PIPE_NEED) or \
+            [i for i, t in enumerate(head) if t[4]] != list(JAX_CPU_PIPE_INSERTED) or \
+            max(abs(t[2] - j) for t, j in zip(head, JAX_CPU_PIPE_INLIERS)) > 2:
+        raise AssertionError(f"pipelined path: frames 0-{N_PIPE_SAME - 1} differ from JAX's trace")
+    lost_frames = [i for i, t in enumerate(trace) if not t[1]]
+    runs = [r for r in np.split(np.asarray(lost_frames), np.where(np.diff(lost_frames) > 1)[0] + 1)
+            if len(r)]
+    if lost > JAX_CPU_PIPE_LOST_MAX or any(len(r) > PIPE_LAG for r in runs) or \
+            stats["reloc_successes"] < len(runs) or not last_tracked:
+        raise AssertionError(f"pipelined path: lost frames {lost_frames} (JAX at most "
+                             f"{JAX_CPU_PIPE_LOST_MAX}; {stats['reloc_successes']} "
+                             f"relocalizations)")
+    if not ate <= 1.5 * JAX_CPU_PIPE_ATE_MAX:
+        raise AssertionError(f"pipelined path: ATE {ate} (JAX {JAX_CPU_ATE_PIPE}, at most "
+                             f"{JAX_CPU_PIPE_ATE_MAX} under one-ulp nudges)")
+    if not burst or [c["kind"] for c in burst] != ["prep"] * (len(burst) - 1) + ["finish"] or \
+            len(burst) < 3 or not prep_ok:
+        raise AssertionError(f"pipelined path: the burst's mapping_prep on the card and the CPU "
+                             f"disagree, or no burst ({burst_rows})")
+    if ba_graph or not ba_bind > 0.995 or not ba_snap or not (ba_d[:3] <= 1.5 * spread[:3]).all():
+        raise AssertionError(f"pipelined path: the burst's deferred BA on the card and the CPU "
+                             f"disagree beyond the card's own spread ({ba_d} vs {spread})")
+    if abs(stats["keyframes_inserted"] - JAX_CPU_KF_PIPE) > TUM_KF_BAND:
+        raise AssertionError(f"pipelined path: {stats['keyframes_inserted']} keyframes, JAX "
+                             f"{JAX_CPU_KF_PIPE} +- {TUM_KF_BAND}")
+    expect = dict(fast_score_nms=n, proj_best2=3 * n + calls["reloc_k2"], pair_best2=3 * n_prep,
+                  lm_obs=17 * n_fin)
+    if launches != expect or n_fin != stats["local_ba_runs"] or n_fin < 1 or n_prep < 1:
+        raise AssertionError(f"pipelined path launches {launches}, expected {expect}")
+    over = {k: max(v) for k, v in waits.items() if v and max(v) > PIPE_SYNC_MAX[k]}
+    if over or not waits["dispatch"] or max(drained_waits, default=0) > PIPE_SYNC_MAX["dispatch"]:
+        raise AssertionError(f"pipelined path host waits over {PIPE_SYNC_MAX}: {over}, "
+                             f"drained dispatches {drained_waits}, sites {sites}")
+    if not same_b:
+        raise AssertionError(f"pipelined path: the repeat of frames 0-{N_PIPE_REPEAT - 1} differs")
+    if not same_cpu or not cpu_diff < PIPE_TOL_M:
+        raise AssertionError(f"pipelined path: card and CPU disagree ({cpu_diff} m)")
+    for k in report:
+        report[k]["pipe_launches"] = launches.get(k, 0)
+
+
+def _phase18(smi, report):
+    """Phase 18: the TUM runner with ``--pipelined`` at its defaults on phase
+    15's directory.  Fills ``report[k]["tum_pipe_launches"]``; any gate
+    that fails raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    import bench
+    from ydorbslam_tpu_torch.apps import run_tum_rgbd
+    from ydorbslam_tpu_torch.io.trajectory import ate_against_groundtruth
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.slam import system as system_mod
+    from ydorbslam_tpu_torch.slam.system import SlamSystem
+    from ydorbslam_tpu_torch.testing import TUM_RGBD_SETTINGS, write_tum_sequence
+
+    frames = bench.make_frames()
+    from synthetic import oscillating_trajectory  # bench put tests/ on sys.path
+
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "seq")
+    yaml, assoc, gt = write_tum_sequence(root, frames, oscillating_trajectory(len(frames)),
+                                         TUM_RGBD_SETTINGS)
+    out = {k: os.path.join(tmp.name, f) for k, f in (
+        ("traj", "CameraTrajectory.txt"), ("kf", "KeyFrameTrajectory.txt"))}
+    secs, calls, pre = [], {"prep": 0, "finish": 0}, {}
+    orig = {"track": SlamSystem.track_rgbd_pipelined, "pre": SlamSystem.precompile,
+            "shutdown": SlamSystem.shutdown, "prep": system_mod.mapping_prep,
+            "finish": system_mod.mapping_finish}
+
+    def track(self, *args):
+        t0 = time.perf_counter()
+        orig["track"](self, *args)
+        secs.append(time.perf_counter() - t0)
+
+    def precompile(self):
+        t0 = time.perf_counter()
+        orig["pre"](self)
+        pre["s"] = time.perf_counter() - t0
+        kernels.reset_launch_counts()  # the run's counts start after it
+        calls.update(prep=0, finish=0)
+
+    def shutdown(self):
+        t0 = time.perf_counter()
+        orig["shutdown"](self)
+        pre["flush"] = time.perf_counter() - t0
+
+    def prep(*args, **kwargs):
+        calls["prep"] += 1
+        return orig["prep"](*args, **kwargs)
+
+    def finish(*args, **kwargs):
+        calls["finish"] += 1
+        return orig["finish"](*args, **kwargs)
+
+    args = [yaml, root, assoc, "--groundtruth", gt, "--pipelined", "--out-trajectory",
+            out["traj"], "--out-kf-trajectory", out["kf"]]
+    text = io.StringIO()
+    t_run = time.perf_counter()
+    try:
+        SlamSystem.track_rgbd_pipelined, SlamSystem.precompile = track, precompile
+        SlamSystem.shutdown = shutdown
+        system_mod.mapping_prep, system_mod.mapping_finish = prep, finish
+        with contextlib.redirect_stdout(text):
+            system = run_tum_rgbd.main(args)
+        launches = kernels.launch_counts()
+    finally:
+        SlamSystem.track_rgbd_pipelined, SlamSystem.precompile = orig["track"], orig["pre"]
+        SlamSystem.shutdown = orig["shutdown"]
+        system_mod.mapping_prep, system_mod.mapping_finish = orig["prep"], orig["finish"]
+    run_s = time.perf_counter() - t_run
+    cfg = system.cfg
+    stats = system.run_stats()
+    ate, _ = ate_against_groundtruth(out["traj"], gt)
+    steady = secs[N_WARM:]
+    fps = len(steady) / (sum(steady) + pre["flush"])
+    print("phase 18 runner output: " + " | ".join(
+        line.strip() for line in text.getvalue().splitlines() if line.strip()), flush=True)
+    print(f"phase 18 TUM runner --pipelined (lag {system._pipe_lag}, capacities "
+          f"K={cfg.capacity.max_keyframes} M={cfg.capacity.max_map_points}, loop closing "
+          f"{'on' if system.loop_closer is not None else 'OFF'}): {stats['frames_total']} "
+          f"frames, lost {stats['frames_lost']}, ATE {ate:.6f} m (JAX's runner --pipelined on a "
+          f"CPU: {JAX_CPU_ATE_TUM_PIPE}), keyframes inserted {stats['keyframes_inserted']} (JAX "
+          f"{JAX_CPU_KF_TUM_PIPE}) culled {stats['keyframes_culled']} live "
+          f"{stats['keyframes_live']}, mapping_prep {calls['prep']}, deferred local BAs "
+          f"{calls['finish']}, loops closed {stats['loops_closed']} (JAX "
+          f"{JAX_CPU_LOOPS_TUM_PIPE}), launches {launches}, {fps:.3f} frames/s over frames "
+          f"{N_WARM}-{len(secs) - 1} (dispatches plus the final flush "
+          f"{pre['flush'] * 1e3:.1f} ms), median dispatch "
+          f"{float(np.median(steady)) * 1e3:.3f} ms, precompile {pre['s']:.2f} s, run "
+          f"{run_s:.1f} s | {smi}", flush=True)
+    if stats["frames_total"] != len(frames) or stats["frames_lost"] != 0 or ate is None:
+        raise AssertionError(f"TUM runner --pipelined: {stats['frames_lost']} lost")
+    if cfg.capacity.max_keyframes != 512 or system.loop_closer is None or \
+            system._pipe_lag != PIPE_LAG:
+        raise AssertionError("TUM runner --pipelined: not at its default configuration")
+    if not ate < 0.02 or not ate <= 1.5 * JAX_CPU_ATE_TUM_PIPE:
+        raise AssertionError(f"TUM runner --pipelined: ATE {ate} (JAX {JAX_CPU_ATE_TUM_PIPE})")
+    if abs(stats["keyframes_inserted"] - JAX_CPU_KF_TUM_PIPE) > TUM_KF_BAND or \
+            stats["loops_closed"] != JAX_CPU_LOOPS_TUM_PIPE:
+        raise AssertionError(f"TUM runner --pipelined: {stats['keyframes_inserted']} "
+                             f"keyframes, {stats['loops_closed']} loops")
+    expect = dict(fast_score_nms=len(frames), pair_best2=3 * calls["prep"],
+                  lm_obs=17 * calls["finish"])
+    if any(launches[k] != v for k, v in expect.items()) or \
+            launches["proj_best2"] < 3 * len(frames) or calls["finish"] < 1:
+        raise AssertionError(f"TUM runner --pipelined launches {launches}, expected {expect} "
+                             f"and >= {3 * len(frames)} proj_best2")
+    for k in report:
+        report[k]["tum_pipe_launches"] = launches.get(k, 0)
+    tmp.cleanup()
+
+
 def _phase16(smi):
     """Phase 16: every exported helper the port added beside the JAX
     package's API (geometry, Hamming, blur, empty features, retrieval)
@@ -2028,6 +2616,12 @@ def main() -> int:
     # 16. the exported helpers on the card against the CPU.
     _phase16(smi)
 
+    # 17. the pipelined path at bench.py's configuration.
+    _phase17(smi, report)
+
+    # 18. the TUM runner with --pipelined at its defaults.
+    _phase18(smi, report)
+
     rows = []
     for k, src, rep in (
         ("fast_score_nms", "ydorbslam_tpu_torch/csrc/fast_nms.cu",
@@ -2046,7 +2640,8 @@ def main() -> int:
                          bound_by=r["bound_by"], library_ms=None,
                          loop_launches=r["loop_launches"],
                          stereo_launches=r["stereo_launches"],
-                         tum_launches=r["tum_launches"]))
+                         tum_launches=r["tum_launches"], pipe_launches=r["pipe_launches"],
+                         tum_pipe_launches=r["tum_pipe_launches"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

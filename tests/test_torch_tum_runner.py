@@ -139,8 +139,17 @@ def test_runner_on_the_cpu(tum, tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [["--pipelined"], ["--lag", "4"]])
 def test_runner_refuses_what_is_not_ported(tum, extra, capsys):
+    """The pipelined RGB-D path is ported, so the TUM runner takes
+    ``--pipelined`` and ``--lag`` (default 16; tests/test_torch_pipeline.py
+    runs it); the stereo runner, whose pipelined path is not ported,
+    still refuses both."""
+    from ydorbslam_tpu_torch.apps import run_kitti_stereo
+
+    args = run_tum_rgbd.parse_arguments(
+        [tum["yaml"], tum["root"], tum["assoc"], "--device", "cpu", *extra])
+    assert (args.pipelined, args.lag) == (("--pipelined" in extra), 4 if "--lag" in extra else 16)
     with pytest.raises(SystemExit):
-        run_tum_rgbd.main([tum["yaml"], tum["root"], tum["assoc"], "--device", "cpu", *extra])
+        run_kitti_stereo.main([tum["root"], "--device", "cpu", *extra])
     assert "not ported" in capsys.readouterr().err
 
 

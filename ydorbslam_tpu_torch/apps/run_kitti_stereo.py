@@ -35,8 +35,13 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--no-loop", action="store_true")
     ap.add_argument("--out-trajectory", default="CameraTrajectory.txt")
+    ap.add_argument("--pipelined", action="store_true", help="not ported")
+    ap.add_argument("--lag", type=int, default=None, help="not ported")
     add_port_arguments(ap)
     args = ap.parse_args(argv)
+    given = [f"--{k}" for k in ("pipelined", "lag") if getattr(args, k) not in (None, False)]
+    if given:
+        ap.error(f"{', '.join(given)}: not ported to the PyTorch package")
     check_arguments(ap, args)
 
     from ..config import SlamConfig, load_config

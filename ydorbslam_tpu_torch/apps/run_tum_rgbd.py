@@ -5,6 +5,7 @@ reference's test program (test/src/test.cpp).
         [--groundtruth GT.txt] [--no-loop] [--no-mapping] [--max-frames N]
         [--out-trajectory PATH] [--out-kf-trajectory PATH] [--viz MAP.png]
         [--viewer-dir DIR] [--viewer-every N] [--device cuda|cpu]
+        [--pipelined [--lag N]]
 
 The counterpart of ``apps/run_tum_rgbd.py``, with its arguments and
 output: it parses the association file, builds the system from the
@@ -15,18 +16,24 @@ median and mean tracking time (test.cpp:98-106), writes
 CameraTrajectory.txt and KeyFrameTrajectory.txt (test.cpp:109-110) and
 prints the run stats, a top-down map PNG (``--viz``) and, given a
 groundtruth.txt, the ATE of the written trajectory.  ``--viewer-dir``
-writes a frame and a map PNG every ``--viewer-every`` frames.  It runs
-on the card (``--device cuda``, the default) and fails when there is
-none; ``--device cpu`` runs the plain versions of the kernels.  Not
-ported: ``--pipelined``/``--lag`` and the multi-host join; each stops
-the runner with an error.  ``main`` returns the shut-down system.
+writes a frame and a map PNG every ``--viewer-every`` frames.
+``--pipelined`` tracks through the pipelined path instead: it calls
+``enable_pipelined(lag)`` (``--lag``, default 16) and ``precompile()``,
+dispatches every frame with ``track_rgbd_pipelined`` and times each
+dispatch, as the JAX runner does; with ``YDORBSLAM_TRACE_FRAMES`` set it
+prints the per-frame trace after the run stats.  It runs on the card
+(``--device cuda``, the default) and fails when there is none;
+``--device cpu`` runs the plain versions of the kernels.  Not ported:
+the multi-host join, which stops the runner with an error.  ``main``
+returns the shut-down system.
 """
 import argparse
 
 from ._common import add_port_arguments, check_arguments, print_stats, track_frames
 
 
-def main(argv=None):
+def parse_arguments(argv=None):
+    """The runner's arguments, checked (``_common.check_arguments``)."""
     ap = argparse.ArgumentParser(prog="python -m ydorbslam_tpu_torch.apps.run_tum_rgbd")
     ap.add_argument("config")
     ap.add_argument("sequence_dir")
@@ -38,10 +45,18 @@ def main(argv=None):
     ap.add_argument("--out-trajectory", default="CameraTrajectory.txt")
     ap.add_argument("--out-kf-trajectory", default="KeyFrameTrajectory.txt")
     ap.add_argument("--viz", default=None, help="write a map/trajectory PNG")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="dispatch frames ahead through the device pipeline and "
+                         "decide them in batches, --lag frames late")
+    ap.add_argument("--lag", type=int, default=16)
     add_port_arguments(ap)
     args = ap.parse_args(argv)
     check_arguments(ap, args)
+    return args
 
+
+def main(argv=None):
+    args = parse_arguments(argv)
     from ..config import load_config
     from ..io import TumRgbdDataset
     from ..io.trajectory import ate_against_groundtruth
@@ -54,11 +69,20 @@ def main(argv=None):
     print(f"sequence: {n} frames; starting SLAM")
     system = SlamSystem(cfg, Sensor.RGBD, enable_mapping=not args.no_mapping,
                         enable_loop_closing=not args.no_loop, device=args.device)
-    track_frames(system, args, n, ds.__getitem__, system.track_rgbd, 50)
+    if args.pipelined:
+        system.enable_pipelined(lag=args.lag)
+        system.precompile()
+    track = system.track_rgbd_pipelined if args.pipelined else system.track_rgbd
+    track_frames(system, args, n, ds.__getitem__, track, 50, wait=not args.pipelined)
     system.save_trajectory_tum(args.out_trajectory)
     system.save_keyframe_trajectory_tum(args.out_kf_trajectory)
     print(f"trajectories saved: {args.out_trajectory}, {args.out_kf_trajectory}")
     print_stats(system)
+    if system.frame_trace is not None:
+        print("--- frame trace (i mode ok inl [need] [INS]) ---")
+        for i, (_ts, mode, ok, inl, need, ins) in enumerate(system.frame_trace):
+            flags = ("" if not need else " need") + ("" if not ins else " INS")
+            print(f"{i:4d} m{mode} {'ok' if ok else 'LOST':4s} {inl:4d}{flags}")
 
     if args.viz:
         from ..viz.headless import render_map_topdown

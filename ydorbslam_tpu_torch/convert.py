@@ -2,7 +2,8 @@
 
 SLAM has no learned weights: the state that has to carry across is the
 configuration, the camera, a frame's features, the tracker's state, the
-map, the place-recognition index and a bundle-adjustment problem.  Every function here takes plain
+pipelined path's device state and tracking set, the map, the
+place-recognition index and a bundle-adjustment problem.  Every function here takes plain
 numpy arrays (call ``np.asarray`` on the JAX side), so this module
 imports neither JAX nor the JAX package.  With these a test can load a
 JAX tracker or map in the middle of a sequence into the port and step
@@ -24,6 +25,7 @@ from .geometry.camera import CameraIntrinsics
 from .ops.extractor import FrameFeatures
 from .optim.schur import BAProblem
 from .slam.map_state import MapState
+from .slam.pipeline import TrackSet, TrackState
 from .slam.retrieval import RetrievalIndex
 from .slam.tracking import Tracker, TrackingState
 
@@ -169,3 +171,44 @@ def tracker_state_from_numpy(
     tracker.last_lms_valid = _t(last_lms_valid, dev, torch.bool)
     tracker.state = TrackingState(int(state))
     return tracker
+
+
+# TrackState fields besides the two feature sets, by dtype.
+_STATE_DTYPES = dict(
+    mode=torch.int32, last_lms_valid=torch.bool, ring_mpid=torch.int32,
+    frame_idx=torch.int32, since_reloc=torch.int32, vis_acc=torch.int32,
+    found_acc=torch.int32,
+)
+
+
+def track_state_from_numpy(fields: Mapping[str, Any], device="cpu") -> TrackState:
+    """``TrackState`` of the pipelined path from a mapping of field name ->
+    numpy array, where ``last`` and ``ring_feats`` are themselves mappings
+    of feature field -> array (``features_from_numpy``'s input; the ring's
+    arrays carry the leading ``RING`` axis)."""
+    out = {}
+    for name in TrackState._fields:
+        if name in ("last", "ring_feats"):
+            out[name] = features_from_numpy(fields[name], device)
+        else:
+            out[name] = _t(fields[name], device, _STATE_DTYPES.get(name, torch.float32))
+    return TrackState(**out)
+
+
+def track_state_to_numpy(state: TrackState) -> dict:
+    """The inverse of ``track_state_from_numpy``."""
+    return {
+        name: features_to_numpy(v) if name in ("last", "ring_feats") else v.cpu().numpy()
+        for name, v in state._asdict().items()
+    }
+
+
+def track_set_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> TrackSet:
+    """``TrackSet`` from a mapping of field name -> numpy array (point ids
+    as int64, the port's own type; descriptors uint32, viewed as int32)."""
+    dtypes = dict(pts=torch.int64, valid=torch.bool)
+    return TrackSet(**{
+        name: _desc_in(fields[name], device) if name == "desc"
+        else _t(fields[name], device, dtypes.get(name, torch.float32))
+        for name in TrackSet._fields
+    })

@@ -445,6 +445,7 @@ class LoopCloserImpl:
         )
         self.closer.consistent_groups = (masks, counts.to(torch.int32))
         packed = torch.cat([ids.to(torch.float32), consistent.to(torch.float32)])
+        sys._snapshot()
         self._pending = (kf_id, int(sys._host_kf_frame_id[kf_id]), packed)
 
     def _poll_pending(self) -> bool:
@@ -458,6 +459,7 @@ class LoopCloserImpl:
         closer = self.closer
         # Staleness guard: mapping may have culled the pending keyframe, or
         # reused its slot for another frame, since the dispatch.
+        sys._snapshot()
         if (not sys._host_kf_valid[kf_id]
                 or int(sys._host_kf_frame_id[kf_id]) != frame_id_at_dispatch):
             return False

@@ -486,7 +486,8 @@ def update_covisibility(m: MapState, kf_id: int) -> MapState:
     best = torch.argmax(w_earlier)
     recent = torch.argmax(torch.where(earlier, m.kf_frame_id, -1))
     fallback = torch.where(torch.any(earlier), recent, -1)
-    chosen = torch.where(w_earlier[best] > 0, best, fallback)
+    # The argmax's own weight is the maximum: no 0-dim index, so no read.
+    chosen = torch.where(torch.amax(w_earlier) > 0, best, fallback)
     parent = torch.where(m.parent[kf_id] < 0, chosen, m.parent[kf_id]).to(torch.int32)
     return m._replace(covis=covis, parent=scatter_set(m.parent, kf_id, parent))
 

@@ -289,7 +289,8 @@ def match_local_points(
     scale_factor: float = 1.2,
     ratio: float = 0.8,
     max_dist: int = TH_HIGH,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_visible: bool = False,
+):
     """Local-map-point -> frame search (track-local-map): the frustum
     test (in image, distance band [0.8 min, 1.2 max], view cos > 0.5,
     frame.cpp:295-326) and the projection search (radius 2.5 if view cos
@@ -299,7 +300,8 @@ def match_local_points(
     JAX package's dense CPU search (``search_by_projection``).
 
     Returns (assign (N,) map-point row per current keypoint or -1,
-    dist (N,))."""
+    dist (N,)), and with ``return_visible`` also the (P,) frustum mask
+    (the points that count as visible, tracking.cpp:570-604)."""
     scales = scale_table(n_levels, scale_factor, mp_pos.device)
     proj = project_sources(cam, T_cw, mp_pos, mp_valid)
     cam_center = -T_cw[:3, :3].T @ T_cw[:3, 3]
@@ -322,7 +324,8 @@ def match_local_points(
         mp_desc, attr_a, curr.desc, _pack_cur_attr(curr), check_ur=False
     )
     row_ok = (b1 <= max_dist) & (b1.to(torch.float32) < ratio * b2.to(torch.float32))
-    return _resolve_columns(idx, b1, row_ok, curr.valid.shape[0])
+    res = _resolve_columns(idx, b1, row_ok, curr.valid.shape[0])
+    return (*res, frustum_ok) if return_visible else res
 
 
 def match_fuse_points(

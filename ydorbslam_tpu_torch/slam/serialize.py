@@ -18,7 +18,10 @@ What the JAX package drops, the port drops too: the loop closer starts
 fresh (no pending verification, no consistency groups), the run
 counters start fresh, and ``frames_since_reloc`` and the frame's
 map-point ids are not saved.  The host's copies of the keyframe slot
-mask and frame ids are rebuilt from the loaded map.
+mask and frame ids are rebuilt from the loaded map; the reference
+keyframe's pose is read from it when first needed.  A loaded system
+tracks synchronously until ``enable_pipelined`` is called again, which
+starts the device state over, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -141,7 +144,12 @@ def load_system(path: str, cfg, sensor=None, device="cuda", **system_kwargs):
         for i in range(len(ts))
     ]
     # The host's copies of the slot mask and frame ids, which keyframe
-    # allocation and the loop closer's staleness guard read.
+    # allocation and the loop closer's staleness guard read; the reference
+    # keyframe's pose (the pipelined records' base) is read from the loaded
+    # map when first needed, and no deferred snapshot is pending (the JAX
+    # package's cleared ``_snap`` and ``_pending_snap``).
     system._host_kf_valid = system.map.kf_valid.cpu().numpy().copy()
     system._host_kf_frame_id = system.map.kf_frame_id.cpu().numpy().astype(np.int64)
+    system._host_ref_pose = None
+    system._pending_snap = None
     return system
