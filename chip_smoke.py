@@ -207,6 +207,46 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      ``--pipelined`` on a CPU; keyframes within ``TUM_KF_BAND`` of JAX's;
      the loops closed equal to JAX's; K1 once and K2 at least 3 times per
      frame, K3 3x per ``mapping_prep``, K4 17x per deferred BA.
+ 19. the pipelined stereo path at the KITTI-00 configuration:
+     ``SlamSystem(kitti00_config, Sensor.STEREO, enable_mapping=True,
+     enable_loop_closing=False, device="cuda")``, ``enable_pipelined(lag=16)``,
+     ``precompile()``, the uint8 pairs of ``testing.make_stereo_frames(60)``
+     through ``track_stereo_pipelined``, ``shutdown()``.  Gates, against the
+     JAX package's run on a CPU (``tools/jax_pipelined_stereo_reference.py``):
+     0 lost; the TUM-file ATE under 0.08 m and within 1.5x of JAX's;
+     keyframes within ``TUM_KF_BAND`` of JAX's; frames 0-37 (through the
+     first drain that inserts more than one keyframe) tracked, asking for
+     and inserting keyframes as in JAX's trace, inliers within 2; that
+     drain's ``mapping_prep`` calls and deferred BA again on the CPU from
+     the card's inputs, call by call, at the bounds of ``BURST_GRAPH``'s
+     comment; K1 exactly twice and K2 exactly 3 times per frame (plus what
+     a relocalization launches), K3 3x per ``mapping_prep``, K4 17x per
+     deferred BA; a second run of frames 0-29 in the same call under CUDA's
+     sync debug mode: 0 waits in every dispatch, each part of a drain within
+     ``PIPE_SYNC_MAX``, the same packed info rows and insertions bit for
+     bit; frame 0's pipelined ``stereo_match`` (with the level-0 wrap of a
+     uint8 pair) against the port on the CPU from the same inputs (the ok
+     mask on >= 99 % of the keypoints, right_u within 1e-3 px), with the
+     count of octave-0 keypoints whose SAD costs the wrap changes; the
+     first 10 frames pipelined on a CPU ``SlamSystem``: the same lost frames
+     and insertions, track-time camera centres within 1e-3 m; K1 on both
+     images' last levels and K2 on its last inputs identical to plain.  It
+     prints frames/s over the dispatches of frames 10-59 and the final
+     shutdown, the median dispatch and drain ms, each deferred BA's
+     synchronised ms, the ``perf`` terms and the precompile seconds.
+ 20. the KITTI runner with ``--pipelined --lag 16 --poses`` in this process
+     on ``testing.write_kitti_sequence`` of the same 60 pairs, at its own
+     configuration (``SlamConfig()`` with ``calib.txt``'s camera, 1000
+     features, 512 keyframe and 65,536 map-point slots, loop closing on), the
+     launch counts set to 0 after its ``precompile()``.  Gates, against the
+     JAX package's own runner with ``--pipelined`` on the same directory on
+     a CPU: lost frames no more than JAX's; the ATE (at full precision, with
+     the runners' pairing of the i-th written pose with the i-th
+     ground-truth pose) within 1.5x of JAX's; the loops closed equal to
+     JAX's; K1 exactly twice and K2 at least 3 times per frame, K3 3x per
+     ``mapping_prep``, K4 at least 17x per deferred BA.
+
+Each phase from 12 on prints the seconds since the start when it ends.
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -220,8 +260,10 @@ TPU kernel it replaces, launches in the main path (phase 8), in the
 loop path of phase 13 (``loop_launches``), in the stereo path of
 phase 14 (``stereo_launches``), in the TUM runner's run of phase 15
 (``tum_launches``), in the pipelined path of phase 17
-(``pipe_launches``) and in the pipelined runner of phase 18
-(``tum_pipe_launches``), max abs
+(``pipe_launches``), in the pipelined runner of phase 18
+(``tum_pipe_launches``), in the pipelined stereo path of phase 19
+(``stereo_pipe_launches``) and in the pipelined KITTI runner of phase 20
+(``kitti_pipe_launches``), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
 levels, one launch) and that of the plain version, the bound on that
 input (the larger of its bytes over 3.35 TB/s and its operations over
@@ -391,6 +433,39 @@ PIPE_SYNC_MAX = {"dispatch": 0, "drain": 1, "snapshot": 1, "insert": 0, "ba": 0,
 JAX_CPU_ATE_TUM_PIPE = 0.002095937215097471
 JAX_CPU_KF_TUM_PIPE = 33
 JAX_CPU_LOOPS_TUM_PIPE = 0
+# Phase 19: the pipelined stereo path at the KITTI-00 configuration
+# (SlamSystem(kitti00_config, Sensor.STEREO, loop closing off),
+# enable_pipelined(lag=16), precompile(), the uint8 pairs of
+# testing.make_stereo_frames(60), shutdown()), and the JAX package's
+# figures on the same run on a CPU (tools/jax_pipelined_stereo_reference.py).
+JAX_CPU_ATE_STEREO_PIPE = 0.004481868516834001
+JAX_CPU_LOST_STEREO_PIPE = 0
+JAX_CPU_KF_STEREO_PIPE = 19
+# JAX's frame trace of that run through frame 37: the drain after frame 37
+# is the first to insert more than one keyframe (7: frames 24-36, every
+# second) and runs the first deferred BA; every frame to that point steps on
+# the map of the earlier drains.  Inliers per frame, the frames that asked
+# for a keyframe, the frames inserted; all 38 tracked.
+N_STEREO_PIPE_SAME = 38
+JAX_CPU_STEREO_PIPE_INLIERS = (
+    1319, 728, 635, 646, 608, 598, 583, 601, 577, 564, 586, 598, 575, 622, 586, 625, 580, 604,
+    608, 597, 581, 551, 540, 533, 486, 499, 464, 430, 434, 439, 435, 421, 434, 446, 469, 457,
+    450, 462)
+JAX_CPU_STEREO_PIPE_NEED = (0,) + tuple(range(24, 38))
+JAX_CPU_STEREO_PIPE_INSERTED = (0, 24, 26, 28, 30, 32, 34, 36)
+N_STEREO_PIPE_REPEAT = 30  # frames of the repeat run under CUDA's sync debug mode
+N_PAR_STEREO_PIPE = 10  # CPU parity frames
+# Phase 20: the KITTI runner with --pipelined (lag 16) on
+# testing.write_kitti_sequence of the same 60 pairs, at its own configuration
+# (SlamConfig() with calib.txt's camera, loop closing on), and the JAX
+# package's own runner with --pipelined on the same directory on a CPU
+# (tools/jax_pipelined_stereo_reference.py --runner): lost frames, the ATE at
+# full precision with the runners' pairing (io.trajectory.ate_against_kitti_poses),
+# loops closed.
+JAX_CPU_LOST_KITTI_PIPE = 0
+JAX_CPU_ATE_KITTI_PIPE = 0.002247088034332431
+JAX_CPU_KF_KITTI_PIPE = 17
+JAX_CPU_LOOPS_KITTI_PIPE = 0
 
 
 def _bound(nbytes, lane_ops, popc=0.0):
@@ -1677,6 +1752,211 @@ def _nudged(m, seed):
     return m
 
 
+class _PipeProbe:
+    """The instruments that phases 17 and 19 put around the pipelined
+    facade while a ``with`` block runs (all restored at its end):
+
+    * with ``count`` on, the host's waits on the card inside each part of
+      the path (``PIPE_SYNC_MAX``'s keys; ``track_attr`` is the dispatch),
+      as CUDA's sync debug mode counts them, and their call sites; the
+      waits of a dispatch that drained go to ``drained_waits``;
+    * every drained frame's packed outcome (``infos``), the calls of
+      ``mapping_prep`` and ``mapping_finish``, the K2 launches inside
+      relocalizations;
+    * with ``capture`` on, the first deferred BA that follows more than
+      one ``mapping_prep`` in its drain, and those calls, each with its
+      host map before and after (``burst``, the drain's frames in
+      ``burst_frames``), for ``_replay_drain``;
+    * otherwise each deferred BA's synchronised ms (``ba_ms``)."""
+
+    def __init__(self, track_attr):
+        from ydorbslam_tpu_torch.ops import kernels
+        from ydorbslam_tpu_torch.slam import system as system_mod
+
+        self.kernels, self.system_mod = kernels, system_mod
+        self.Sys = system_mod.SlamSystem
+        self.parts = (("dispatch", track_attr), ("drain", "_drain_batch"),
+                      ("snapshot", "_consume_snapshot"), ("insert", "_insert_keyframe"),
+                      ("ba", "_run_deferred_ba"), ("refresh", "_refresh_trkset"),
+                      ("reloc", "_pipelined_relocalize"))
+        self.waits = {k: [] for k in PIPE_SYNC_MAX}
+        self.sites = {k: {} for k in PIPE_SYNC_MAX}
+        self.drained_waits = []
+        self.burst = self.burst_frames = None
+        self.drain_calls, self.drain_frames = [], []
+        self.reset()
+
+    def reset(self, count=False, capture=False):
+        """Start a run: set what is counted and captured, clear the per-run
+        records and the launch counts."""
+        self.count, self.capture = count, capture
+        self.infos, self.ba_ms = [], []
+        self.calls = {"prep": 0, "finish": 0, "reloc_k2": 0}
+        self.kernels.reset_launch_counts()
+
+    def __enter__(self):
+        Sys, mod = self.Sys, self.system_mod
+        self.saved = [(Sys, a, getattr(Sys, a)) for _, a in self.parts] + [
+            (Sys, "_drain_one", Sys._drain_one), (mod, "mapping_prep", mod.mapping_prep),
+            (mod, "mapping_finish", mod.mapping_finish)]
+        for key, a in self.parts:
+            setattr(Sys, a, self._counted(getattr(Sys, a), key))
+        Sys._pipelined_relocalize = self._reloc(Sys._pipelined_relocalize)
+        Sys._drain_one = self._drain_one(Sys._drain_one)
+        mod.mapping_prep = self._prep(mod.mapping_prep)
+        mod.mapping_finish = self._finish(mod.mapping_finish)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+    @staticmethod
+    def _quiet(fn):
+        """``fn()`` with the sync debug mode off: the probe's own reads and
+        synchronisations are not waits of the path."""
+        import torch
+
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def _host_map(self, m):
+        import torch
+
+        from ydorbslam_tpu_torch.convert import map_state_to_numpy
+
+        return self._quiet(lambda: m.cpu().numpy() if isinstance(m, torch.Tensor)
+                           else map_state_to_numpy(m))
+
+    def _counted(self, fn, key):
+        import torch
+
+        def wrapper(system, *args, **kwargs):
+            if key == "drain":
+                self.drain_calls = []
+                self.drain_frames = [fid for _, fid in system._pending]
+            if not self.count:
+                return fn(system, *args, **kwargs)
+            mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(system, *args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                    found = [w for w in seen if SYNC_WARNING in str(w.message)]
+                    if key == "dispatch" and not system._pending:
+                        self.drained_waits.append(len(found))
+                    else:
+                        self.waits[key].append(len(found))
+                    for w in found:
+                        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                        self.sites[key][site] = self.sites[key].get(site, 0) + 1
+        return wrapper
+
+    def _reloc(self, fn):
+        """A relocalization, with the K2 launches it makes (its appearance
+        matches and widening searches, beside the 3 per frame)."""
+        def wrapper(system, timestamp, slot):
+            before = self.kernels.launch_counts()["proj_best2"]
+            try:
+                return fn(system, timestamp, slot)
+            finally:
+                self.calls["reloc_k2"] += self.kernels.launch_counts()["proj_best2"] - before
+        return wrapper
+
+    def _drain_one(self, fn):
+        def wrapper(system, timestamp, info, allow_reloc=True):
+            self.infos.append((info.mode, info.ok, info.n_inliers, info.need_kf,
+                               info.ring_slot, info.T_cw.tobytes()))
+            return fn(system, timestamp, info, allow_reloc)
+        return wrapper
+
+    def _prep(self, fn):
+        def wrapper(*args, **kwargs):
+            self.calls["prep"] += 1
+            if not self.capture:
+                return fn(*args, **kwargs)
+            before = self._host_map(args[0])
+            out = fn(*args, **kwargs)
+            self.drain_calls.append(dict(kind="prep", map=before, args=args[1:], kw=kwargs,
+                                         out=self._host_map(out)))
+            return out
+        return wrapper
+
+    def _finish(self, fn):
+        import torch
+
+        def wrapper(*args, **kwargs):
+            self.calls["finish"] += 1
+            if self.capture and len(self.drain_calls) > 1:
+                before = self._host_map(args[0])
+                out = fn(*args, **kwargs)
+                self.burst = self.drain_calls + [dict(
+                    kind="finish", map=before, args=args[1:], kw=kwargs,
+                    out=self._host_map(out[0]), snap=self._host_map(out[1]))]
+                self.burst_frames = (self.drain_frames[0], self.drain_frames[-1])
+                self.capture = False
+                return out
+            if self.count:
+                return fn(*args, **kwargs)
+            self._quiet(torch.cuda.synchronize)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._quiet(torch.cuda.synchronize)
+            self.ba_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+
+def _replay_drain(calls, cpu):
+    """One drain's ``mapping_prep`` calls and deferred BA, captured on the
+    card (``calls``: each call's host map before and after, its arguments
+    and, for the BA, its snapshot), again on the CPU system ``cpu``'s
+    camera from the card's inputs, call by call; the BA also on the card
+    from ``N_BURST_NUDGE`` one-ulp nudges of its input.  Returns the rows
+    (keyframe, graph fields that differ, least share of equal bindings,
+    ``_map_diff``'s distances) of the preps, whether every prep is within
+    the bounds of ``BURST_GRAPH``'s comment, the BA's (graph, bindings,
+    distances, snapshot rows equal, the card's own spread) or None, and
+    the seconds."""
+    import numpy as np
+
+    from ydorbslam_tpu_torch.convert import map_state_from_numpy, map_state_to_numpy
+    from ydorbslam_tpu_torch.slam import mapping as mapping_mod
+
+    rows, prep_ok, ba = [], True, None
+    t0 = time.perf_counter()
+    for c in calls or []:
+        src = map_state_from_numpy(c["map"])
+        if c["kind"] == "prep":
+            kf_id, kf_count, _ = c["args"]
+            out = map_state_to_numpy(mapping_mod.mapping_prep(src, kf_id, kf_count, cpu.cam,
+                                                              **c["kw"]))
+            graph, bind, d = _map_diff(out, c["out"])
+            prep_ok &= not graph and bind > 0.995 and d[1] < 1e-3 and d[3] < PIPE_PREP_MAX_M
+            rows.append((kf_id, graph, bind, d))
+            continue
+        kf_id, cam, tab, thr = c["args"]
+        m, snap = mapping_mod.mapping_finish(src, kf_id, cpu.cam, cpu.inv_sigma2_tab, thr.cpu(),
+                                             **c["kw"])
+        graph, bind, d = _map_diff(map_state_to_numpy(m), c["out"])
+        K = len(c["out"]["kf_valid"])
+        same_snap = np.array_equal(snap[:4 * K].numpy(), c["snap"][:4 * K])
+        spread = np.zeros(4)
+        for seed in range(N_BURST_NUDGE):
+            nudged = map_state_from_numpy(_nudged(c["map"], seed), device=thr.device)
+            out = mapping_mod.mapping_finish(nudged, kf_id, cam, tab, thr, **c["kw"])[0]
+            spread = np.maximum(spread, _map_diff(map_state_to_numpy(out), c["out"])[2])
+        ba = (graph, bind, d, same_snap, spread)
+    return rows, prep_ok, ba, time.perf_counter() - t0
+
+
 def _bench_run(system, frames, n_warm=N_WARM):
     """bench.run's call sequence: ``n_warm`` frames, ``flush_pipeline``,
     ``perf`` cleared, the other frames each timed to the end of its
@@ -1703,14 +1983,10 @@ def _phase17(smi, report):
     frames again on the CPU.  Fills ``report[k]["pipe_launches"]``; any
     gate that fails raises."""
     import numpy as np
-    import torch
 
     import bench
-    from ydorbslam_tpu_torch.convert import map_state_from_numpy, map_state_to_numpy
     from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
     from ydorbslam_tpu_torch.ops import kernels
-    from ydorbslam_tpu_torch.slam import mapping as mapping_mod
-    from ydorbslam_tpu_torch.slam import system as system_mod
     from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
 
     frames = bench.make_frames()
@@ -1718,103 +1994,6 @@ def _phase17(smi, report):
 
     gt = _centres(oscillating_trajectory(len(frames)))
     Sys = SlamSystem
-    counted_parts = (("dispatch", "track_rgbd_pipelined"), ("drain", "_drain_batch"),
-                     ("snapshot", "_consume_snapshot"), ("insert", "_insert_keyframe"),
-                     ("ba", "_run_deferred_ba"), ("refresh", "_refresh_trkset"),
-                     ("reloc", "_pipelined_relocalize"))
-    orig = {k: getattr(Sys, a) for k, a in counted_parts + (("one", "_drain_one"),)}
-    orig_fn = {"prep": system_mod.mapping_prep, "finish": system_mod.mapping_finish}
-    rec = {"count": False, "infos": [], "ba_ms": [], "calls": {"prep": 0, "finish": 0},
-           "capture": False, "drain_calls": [], "burst": None}
-    waits = {k: [] for k in PIPE_SYNC_MAX}
-    sites = {k: {} for k in PIPE_SYNC_MAX}
-    drained_waits = []  # the dispatch's own waits on the dispatches that drained
-
-    def quiet_sync():
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode(mode)
-
-    def counted(fn, key):
-        """Count the host's waits on the card inside ``fn`` with CUDA's sync
-        debug mode while ``rec["count"]`` is on."""
-        def wrapper(self, *args, **kwargs):
-            if key == "drain":
-                rec["drain_calls"] = []
-            if not rec["count"]:
-                return fn(self, *args, **kwargs)
-            mode = torch.cuda.get_sync_debug_mode()
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    return fn(self, *args, **kwargs)
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-                    found = [w for w in seen if SYNC_WARNING in str(w.message)]
-                    if key == "dispatch" and not self._pending:
-                        drained_waits.append(len(found))
-                    else:
-                        waits[key].append(len(found))
-                    for w in found:
-                        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
-                        sites[key][site] = sites[key].get(site, 0) + 1
-        return wrapper
-
-    def reloc(self, timestamp, slot):
-        """A relocalization, with the K2 launches it makes (its appearance
-        matches and widening searches, beside the 3 per frame)."""
-        before = kernels.launch_counts()["proj_best2"]
-        try:
-            return orig_reloc(self, timestamp, slot)
-        finally:
-            rec["reloc_k2"] += kernels.launch_counts()["proj_best2"] - before
-
-    def drain_one(self, timestamp, info, allow_reloc=True):
-        rec["infos"].append((info.mode, info.ok, info.n_inliers, info.need_kf, info.ring_slot,
-                             info.T_cw.tobytes()))
-        return orig["one"](self, timestamp, info, allow_reloc)
-
-    def host_map(m):
-        """A host copy of a map, not counted as a wait of the path."""
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return m.cpu().numpy() if isinstance(m, torch.Tensor) else map_state_to_numpy(m)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-
-    def prep(*args, **kwargs):
-        rec["calls"]["prep"] += 1
-        if not rec["capture"]:
-            return orig_fn["prep"](*args, **kwargs)
-        before = host_map(args[0])
-        out = orig_fn["prep"](*args, **kwargs)
-        rec["drain_calls"].append(dict(kind="prep", map=before, args=args[1:], kw=kwargs,
-                                       out=host_map(out)))
-        return out
-
-    def finish(*args, **kwargs):
-        rec["calls"]["finish"] += 1
-        if rec["capture"]:
-            # The run's first deferred BA and the mapping_prep calls of its
-            # drain: the burst after frame 38.
-            before = host_map(args[0])
-            out = orig_fn["finish"](*args, **kwargs)
-            rec["burst"] = rec["drain_calls"] + [dict(
-                kind="finish", map=before, args=args[1:], kw=kwargs, out=host_map(out[0]),
-                snap=host_map(out[1]))]
-            rec["capture"] = False
-            return out
-        if rec["count"]:
-            return orig_fn["finish"](*args, **kwargs)
-        quiet_sync()
-        t0 = time.perf_counter()
-        out = orig_fn["finish"](*args, **kwargs)
-        quiet_sync()
-        rec["ba_ms"].append((time.perf_counter() - t0) * 1e3)
-        return out
 
     def make(device):
         system = SlamSystem(_config(), Sensor.RGBD, enable_mapping=True,
@@ -1824,22 +2003,13 @@ def _phase17(smi, report):
         return system
 
     def run(system, frames, count=False):
-        rec.update(count=count, capture=count, infos=[], ba_ms=[], reloc_k2=0)
-        for k in rec["calls"]:
-            rec["calls"][k] = 0
-        kernels.reset_launch_counts()
+        # The repeat run counts the waits and captures the burst (the run's
+        # first deferred BA, after frame 38) with its drain's mapping_prep calls.
+        probe.reset(count=count, capture=count)
         out = _bench_run(system, frames)
-        return (out, kernels.launch_counts(), list(rec["infos"]),
-                dict(rec["calls"], reloc_k2=rec["reloc_k2"]))
+        return out, kernels.launch_counts(), list(probe.infos), dict(probe.calls)
 
-    try:
-        for k, a in counted_parts:
-            setattr(Sys, a, counted(orig[k], k))
-        orig_reloc = Sys._pipelined_relocalize
-        Sys._pipelined_relocalize = reloc
-        Sys._drain_one = drain_one
-        system_mod.mapping_prep, system_mod.mapping_finish = prep, finish
-
+    with _PipeProbe("track_rgbd_pipelined") as probe:
         # A: the gated run, timed as bench.py times it.
         system = make("cuda")
         t0 = time.perf_counter()
@@ -1857,7 +2027,7 @@ def _phase17(smi, report):
         frame_of = {t: i for i, (t, _, _) in enumerate(frames)}
         rows = [frame_of[min(frame_of, key=lambda x: abs(x - t))] for t in ts]
         ate = ate_rmse(pos_tum, gt[rows])
-        ba_ms = list(rec["ba_ms"])
+        ba_ms = list(probe.ba_ms)
         del system
 
         # B: frames 0-59 again in this call, the host's waits counted.
@@ -1865,12 +2035,9 @@ def _phase17(smi, report):
         system.precompile()
         _, _, infos_b, _ = run(system, frames[:N_PIPE_REPEAT], count=True)
         trace_b = [t[1:] for t in system.frame_trace]
-        burst = rec["burst"]
+        burst = probe.burst
         del system
-    finally:
-        for k, a in counted_parts + (("one", "_drain_one"),):
-            setattr(Sys, a, orig[k])
-        system_mod.mapping_prep, system_mod.mapping_finish = orig_fn["prep"], orig_fn["finish"]
+    waits, sites, drained_waits = probe.waits, probe.sites, probe.drained_waits
 
     # The CPU: the first 30 frames in bench.run's sequence.
     cpu = make("cpu")
@@ -1887,30 +2054,8 @@ def _phase17(smi, report):
 
     # The burst's drain again on the CPU from the card's inputs, call by
     # call; the deferred BA also on the card from one-ulp nudges of its input.
-    burst_rows, prep_ok = [], True
-    t_replay = time.perf_counter()
-    for c in burst or []:
-        src = map_state_from_numpy(c["map"])
-        if c["kind"] == "prep":
-            kf_id, kf_count, _ = c["args"]
-            out = map_state_to_numpy(mapping_mod.mapping_prep(src, kf_id, kf_count, cpu.cam,
-                                                              **c["kw"]))
-            graph, bind, d = _map_diff(out, c["out"])
-            prep_ok &= not graph and bind > 0.995 and d[1] < 1e-3 and d[3] < PIPE_PREP_MAX_M
-            burst_rows.append((kf_id, graph, bind, d))
-            continue
-        kf_id, cam, tab, thr = c["args"]
-        m, snap = mapping_mod.mapping_finish(src, kf_id, cpu.cam, cpu.inv_sigma2_tab, thr.cpu(),
-                                             **c["kw"])
-        ba_graph, ba_bind, ba_d = _map_diff(map_state_to_numpy(m), c["out"])
-        K = len(c["out"]["kf_valid"])
-        ba_snap = np.array_equal(snap[:4 * K].numpy(), c["snap"][:4 * K])
-        spread = np.zeros(4)
-        for seed in range(N_BURST_NUDGE):
-            nudged = map_state_from_numpy(_nudged(c["map"], seed), device=thr.device)
-            out = mapping_mod.mapping_finish(nudged, kf_id, cam, tab, thr, **c["kw"])[0]
-            spread = np.maximum(spread, _map_diff(map_state_to_numpy(out), c["out"])[2])
-    t_replay = time.perf_counter() - t_replay
+    burst_rows, prep_ok, ba, t_replay = _replay_drain(burst, cpu)
+    ba_graph, ba_bind, ba_d, ba_snap, spread = ba or ([], 0.0, None, False, None)
     cpu_diff = float(np.abs(_centres([i.T_cw for i in cpu_infos]) - _centres(card_T)).max())
     same_cpu = [(t[1], t[4]) for t in cpu_trace] == [(t[1], t[4]) for t in trace[:N_PAR_PIPE]]
 
@@ -2125,6 +2270,395 @@ def _phase18(smi, report):
     tmp.cleanup()
 
 
+def _phase19(smi, report):
+    """Phase 19: the pipelined stereo path at the KITTI-00 configuration on
+    the card, a repeat of frames 0-29 in the same call under CUDA's sync
+    debug mode, the first drain that inserts more than one keyframe again
+    on the CPU call by call, frame 0's pipelined ``stereo_match`` and the
+    first 10 frames again on the CPU, K1 and K2 on the path's last inputs.
+    Fills ``report[k]["stereo_pipe_launches"]``; any gate that fails
+    raises."""
+    import numpy as np
+    import torch
+
+    from ydorbslam_tpu_torch import config as pconfig
+    from ydorbslam_tpu_torch.config import camera_intrinsics
+    from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
+    from ydorbslam_tpu_torch.ops import extractor, kernels
+    from ydorbslam_tpu_torch.ops import stereo as stereo_mod
+    from ydorbslam_tpu_torch.ops.extractor import DETECT_BORDER
+    from ydorbslam_tpu_torch.ops.fast import fast_score_map, nms_and_border
+    from ydorbslam_tpu_torch.slam import matchers
+    from ydorbslam_tpu_torch.slam import pipeline as pipeline_mod
+    from ydorbslam_tpu_torch.slam.system import Sensor, SlamSystem
+    from ydorbslam_tpu_torch.testing import device_ms, kitti00_config, make_stereo_frames
+
+    frames, gt_poses = make_stereo_frames(N_STEREO)
+    cfg = kitti00_config(pconfig)
+    gt = _centres(gt_poses)
+    Sys = SlamSystem
+    orig = {"k1": extractor.fast_score_nms_levels, "k2": matchers.proj_best2,
+            "match": pipeline_mod.stereo_match}
+    kept = {"k1": [], "k2": {}, "frame0": None, "arm": False}
+
+    def keep_k1(levels, border):
+        kept["k1"] = (kept["k1"] + [tuple(levels)])[-2:]  # the last pair's images
+        return orig["k1"](levels, border)
+
+    def keep_k2(desc_a, attr_a, desc_b, attr_b, check_ur=False):
+        kept["k2"][(bool(check_ur), desc_a.shape[0])] = tuple(
+            t.clone() for t in (desc_a, attr_a, desc_b, attr_b))
+        return orig["k2"](desc_a, attr_a, desc_b, attr_b, check_ur)
+
+    def match(fl, fr, pl, pr, *args, **kwargs):
+        out = orig["match"](fl, fr, pl, pr, *args, **kwargs)
+        if kept["arm"]:  # frame 0's, after precompile's scratch step
+            kept["frame0"] = (fl, fr, pl, pr, out)
+            kept["arm"] = False
+        return out
+
+    def make(device):
+        system = SlamSystem(cfg, Sensor.STEREO, enable_mapping=True, enable_loop_closing=False,
+                            device=device)
+        system.enable_pipelined(lag=PIPE_LAG)
+        system.frame_trace = []
+        return system
+
+    def run(system, frames, count=False, capture=False):
+        """The frames through ``track_stereo_pipelined``, each timed to the
+        end of its dispatch, then ``shutdown`` timed."""
+        probe.reset(count=count, capture=capture)
+        secs, drained = [], []
+        for f in frames:
+            t0 = time.perf_counter()
+            system.track_stereo_pipelined(*f)
+            secs.append(time.perf_counter() - t0)
+            drained.append(not system._pending)
+        t0 = time.perf_counter()
+        system.shutdown()
+        return (secs, drained, time.perf_counter() - t0), kernels.launch_counts()
+
+    patches = [(extractor, "fast_score_nms_levels", keep_k1), (matchers, "proj_best2", keep_k2),
+               (pipeline_mod, "stereo_match", match)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        with _PipeProbe("track_stereo_pipelined") as probe:
+            # A: the gated run; the first multi-keyframe drain captured.
+            system = make("cuda")
+            t0 = time.perf_counter()
+            system.precompile()
+            pre_s = time.perf_counter() - t0
+            kept["arm"] = True
+            (secs, drained, shut_s), launches = run(system, frames, capture=True)
+            infos, calls = list(probe.infos), dict(probe.calls)
+            perf = {k: v / len(secs) * 1e3 for k, v in system.perf.items()}
+            stats = system.run_stats()
+            trace = [t[1:] for t in system.frame_trace]
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "CameraTrajectory.txt")
+                system.save_trajectory_tum(path)
+                ts, pos_tum, _ = read_tum_trajectory(path)
+            ate = ate_rmse(pos_tum, gt[[int(round(t * cfg.camera.fps)) for t in ts]])
+            ba_ms = list(probe.ba_ms)
+            del system
+
+            # B: frames 0-29 again in this call, the host's waits counted.
+            system = make("cuda")
+            system.precompile()
+            run(system, frames[:N_STEREO_PIPE_REPEAT], count=True)
+            infos_b = list(probe.infos)
+            trace_b = [t[1:] for t in system.frame_trace]
+            del system
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    waits, sites, drained_waits = probe.waits, probe.sites, probe.drained_waits
+    burst, burst_frames, frame0 = probe.burst, probe.burst_frames, kept["frame0"]
+    k1_last, k2_last = kept["k1"], kept["k2"]
+
+    # The first frames on the CPU, pipelined.
+    cpu = make("cpu")
+    cpu_infos = []
+    orig_one = Sys._drain_one
+    try:
+        Sys._drain_one = lambda self, t, info, allow_reloc=True: (
+            cpu_infos.append(info), orig_one(self, t, info, allow_reloc))[1]
+        t0 = time.perf_counter()
+        for f in frames[:N_PAR_STEREO_PIPE]:
+            cpu.track_stereo_pipelined(*f)
+        cpu.shutdown()
+        cpu_s = time.perf_counter() - t0
+    finally:
+        Sys._drain_one = orig_one
+    cpu_trace = [t[1:] for t in cpu.frame_trace]
+    card_T = [np.frombuffer(i[5]).reshape(4, 4) for i in infos[:N_PAR_STEREO_PIPE]]
+    cpu_diff = float(np.abs(_centres([i.T_cw for i in cpu_infos]) - _centres(card_T)).max())
+    same_cpu = [(t[1], t[4]) for t in cpu_trace] == \
+        [(t[1], t[4]) for t in trace[:N_PAR_STEREO_PIPE]]
+
+    # Frame 0's pipelined stereo_match on the card against the port on the
+    # CPU from the same inputs; how many octave-0 keypoints' SAD costs the
+    # level-0 wrap changes.
+    fl, fr, pl, pr, out = frame0
+    cam_cpu = camera_intrinsics(cfg, "cpu")
+    sad_args = []
+    orig_sad = stereo_mod.sad_costs
+
+    def keep_sad(*args, **kwargs):
+        sad_args.append(args)
+        return orig_sad(*args, **kwargs)
+
+    stereo_mod.sad_costs = keep_sad
+    try:
+        ref = stereo_mod.stereo_match(
+            *(f._replace(**{k: v.cpu() for k, v in f._asdict().items()}) for f in (fl, fr)),
+            [x.cpu() for x in pl], [x.cpu() for x in pr], cam_cpu, cfg.orb.n_levels,
+            cfg.orb.scale_factor, wrap_level0=True)
+    finally:
+        stereo_mod.sad_costs = orig_sad
+    valid = ref.valid.numpy()
+    ok_card, ok_cpu = out.depth.cpu().numpy() > 0, ref.depth.numpy() > 0
+    share = float(np.mean(ok_card[valid] == ok_cpu[valid]))
+    both = ok_card & ok_cpu
+    ur_err = float(np.abs(out.right_u.cpu().numpy()[both] - ref.right_u.numpy()[both]).max())
+    octave = sad_args[0][2]
+    wrapped, plain = orig_sad(*sad_args[0][:5], wrap_level0=True), orig_sad(*sad_args[0][:5])
+    row0 = (octave == 0) & ref.valid
+    n_wrap = int(((wrapped != plain).any(dim=1) & row0).sum())
+
+    # The first multi-keyframe drain again on the CPU from the card's inputs.
+    burst_rows, prep_ok, ba, t_replay = _replay_drain(burst, cpu)
+    ba_graph, ba_bind, ba_d, ba_snap, spread = ba or ([], 0.0, None, False, None)
+
+    # K1 on both images' last levels and K2 on the path's last inputs.
+    lines = []
+    for side, lvls in zip(("left", "right"), k1_last):
+        outs = kernels.fast_score_nms_levels_cuda(lvls, DETECT_BORDER)
+        for img, k in zip(lvls, outs):
+            if not torch.equal(k, nms_and_border(fast_score_map(img), DETECT_BORDER)):
+                raise AssertionError(f"K1 differs from plain on the pipelined {side} image at "
+                                     f"{tuple(img.shape)}")
+        dev = device_ms(lambda: kernels.fast_score_nms_levels_cuda(lvls, DETECT_BORDER))
+        lines.append(f"K1 {side} image: identical; device {dev:.4f} ms")
+    for label, ur in (("motion", True), ("local map", False)):
+        prob = k2_last[max(k for k in k2_last if k[0] == ur)]
+        _same_k2(prob, ur, f"pipelined stereo {label} search")
+        dev = device_ms(lambda: kernels.proj_best2_cuda(*prob, check_ur=ur))
+        lines.append(f"K2 {label} {prob[0].shape[0]}x{prob[2].shape[0]}: identical; device "
+                     f"{dev:.4f} ms")
+
+    n = len(frames)
+    lost = stats["frames_lost"]
+    steady = secs[N_STEREO_WARM:]
+    fps = len(steady) / (sum(steady) + shut_s)
+    disp = [t for t, d in zip(steady, drained[N_STEREO_WARM:]) if not d]
+    drains = [t for t, d in zip(secs, drained) if d]
+    same_b = infos_b == infos[:N_STEREO_PIPE_REPEAT] and trace_b == trace[:N_STEREO_PIPE_REPEAT]
+    n_prep, n_fin = calls["prep"], calls["finish"]
+    head = trace[:N_STEREO_PIPE_SAME]
+    inl_gap = max(abs(t[2] - j) for t, j in zip(head, JAX_CPU_STEREO_PIPE_INLIERS))
+    print(f"phase 19 pipelined stereo path (KITTI-00 configuration, {cfg.camera.width}x"
+          f"{cfg.camera.height}, {cfg.n_keypoints} keypoint slots, lag {PIPE_LAG}, precompile, "
+          f"uint8 pairs): {n} frames, lost {lost} (JAX on a CPU {JAX_CPU_LOST_STEREO_PIPE}), TUM "
+          f"rows {len(ts)}, ATE {ate:.6f} m (JAX on a CPU {JAX_CPU_ATE_STEREO_PIPE}), keyframes "
+          f"inserted {stats['keyframes_inserted']} (JAX {JAX_CPU_KF_STEREO_PIPE}) culled "
+          f"{stats['keyframes_culled']} live {stats['keyframes_live']}, mapping_prep {n_prep}, "
+          f"deferred local BAs {n_fin} (stats {stats['local_ba_runs']}), live map points "
+          f"{stats['map_points_live']}, launches {launches}; {fps:.3f} frames/s as bench.py "
+          f"counts it (dispatches of frames {N_STEREO_WARM}-{n - 1} plus the final shutdown "
+          f"{shut_s * 1e3:.1f} ms), median dispatch {float(np.median(disp)) * 1e3:.3f} ms "
+          f"({len(disp)} not draining), median drain "
+          f"{float(np.median(drains)) * 1e3 if drains else float('nan'):.3f} ms ({len(drains)} "
+          f"drains; the capture's host copies are in the drain of frames {burst_frames}), "
+          f"deferred BA {[round(v, 3) for v in ba_ms]} ms (synchronised), perf per frame ms "
+          f"{({k: round(v, 3) for k, v in sorted(perf.items())})}, precompile {pre_s:.2f} s "
+          f"| {smi}", flush=True)
+    print(f"phase 19 frame trace: lost {[i for i, t in enumerate(trace) if not t[1]]} "
+          f"({stats['reloc_successes']} relocalizations, {calls['reloc_k2']} K2 launches in "
+          f"them), asked {[i for i, t in enumerate(trace) if t[3]]}, inserted "
+          f"{[i for i, t in enumerate(trace) if t[4]]}, inliers {[t[2] for t in trace]}; frames "
+          f"0-{N_STEREO_PIPE_SAME - 1} against JAX's trace: inliers apart by at most {inl_gap}",
+          flush=True)
+    print(f"phase 19 host waits on the card (CUDA sync debug mode, repeat run of frames 0-"
+          f"{N_STEREO_PIPE_REPEAT - 1}; max per call, calls): "
+          + ", ".join(f"{k} {max(v, default=0)} ({len(v)})" for k, v in waits.items())
+          + f", dispatches that drained (their own) {max(drained_waits, default=0)} "
+          f"({len(drained_waits)}); sites {sites}; per-frame outcomes "
+          f"{'bit-equal' if same_b else 'DIFFERENT'} to the gated run's ({len(infos_b)} rows)",
+          flush=True)
+    print(f"phase 19 drain of frames {burst_frames} on the CPU from the card's inputs, call by "
+          "call: mapping_prep on keyframe k: graph fields that differ, least share of equal "
+          "bindings, points' median / largest difference (m): "
+          + "; ".join(f"k {k}: {g or 'none'}, {b:.5f}, {d[1]:.3e} / {d[3]:.3e}"
+                      for k, g, b, d in burst_rows)
+          + (f"; deferred BA: graph {ba_graph or 'none'}, bindings {ba_bind:.5f}, snapshot rows "
+             f"{'equal' if ba_snap else 'DIFFERENT'}, pose entry / points' median / 90th "
+             f"percentile / largest difference {[float(f'{v:.4g}') for v in ba_d]} against the "
+             f"card's own spread under {N_BURST_NUDGE} one-ulp nudges of its input "
+             f"{[float(f'{v:.4g}') for v in spread]}" if ba else " (NO deferred BA captured)")
+          + f"; replay {t_replay:.1f} s", flush=True)
+    print(f"phase 19 card against CPU: frame 0's pipelined stereo_match ok mask agrees on "
+          f"{share:.4%} of {int(valid.sum())} keypoints ({int(ok_card.sum())} ok on the card, "
+          f"{int(ok_cpu.sum())} on the CPU), right_u max {ur_err:.3e} px apart where both are "
+          f"ok; the level-0 wrap changes the SAD costs of {n_wrap} of {int(row0.sum())} octave-0 "
+          f"keypoints; first {N_PAR_STEREO_PIPE} frames pipelined on the CPU: lost and "
+          f"insertions {'identical' if same_cpu else 'DIFFERENT'} ({cpu_trace}), max track-time "
+          f"camera-centre difference {cpu_diff:.3e} m, {cpu_s:.1f} s | "
+          + " | ".join(lines) + f" | {smi}", flush=True)
+    if stats["frames_total"] != n or len(ts) + lost != n or not np.isfinite(pos_tum).all():
+        raise AssertionError(f"pipelined stereo: {stats['frames_total']} records, {len(ts)} rows")
+    if lost != JAX_CPU_LOST_STEREO_PIPE:
+        raise AssertionError(f"pipelined stereo: {lost} lost (JAX {JAX_CPU_LOST_STEREO_PIPE})")
+    if not ate < STEREO_ATE_MAX or not ate <= 1.5 * JAX_CPU_ATE_STEREO_PIPE:
+        raise AssertionError(f"pipelined stereo: ATE {ate} (JAX {JAX_CPU_ATE_STEREO_PIPE})")
+    if abs(stats["keyframes_inserted"] - JAX_CPU_KF_STEREO_PIPE) > TUM_KF_BAND:
+        raise AssertionError(f"pipelined stereo: {stats['keyframes_inserted']} keyframes, JAX "
+                             f"{JAX_CPU_KF_STEREO_PIPE} +- {TUM_KF_BAND}")
+    if [t[1] for t in head] != [True] * N_STEREO_PIPE_SAME or \
+            [i for i, t in enumerate(head) if t[3]] != list(JAX_CPU_STEREO_PIPE_NEED) or \
+            [i for i, t in enumerate(head) if t[4]] != list(JAX_CPU_STEREO_PIPE_INSERTED) or \
+            inl_gap > 2:
+        raise AssertionError(f"pipelined stereo: frames 0-{N_STEREO_PIPE_SAME - 1} differ from "
+                             f"JAX's trace")
+    if not burst or burst_frames[1] != N_STEREO_PIPE_SAME - 1 or not prep_ok or \
+            [c["kind"] for c in burst] != ["prep"] * (len(burst) - 1) + ["finish"]:
+        raise AssertionError(f"pipelined stereo: the drain of frames {burst_frames} on the card "
+                             f"and the CPU disagree, or it was not captured ({burst_rows})")
+    if ba_graph or not ba_bind > 0.995 or not ba_snap or not (ba_d[:3] <= 1.5 * spread[:3]).all():
+        raise AssertionError(f"pipelined stereo: the drain's deferred BA on the card and the CPU "
+                             f"disagree beyond the card's own spread ({ba_d} vs {spread})")
+    expect = dict(fast_score_nms=2 * n, proj_best2=3 * n + calls["reloc_k2"],
+                  pair_best2=3 * n_prep, lm_obs=17 * n_fin)
+    if launches != expect or n_fin != stats["local_ba_runs"] or n_fin < 1:
+        raise AssertionError(f"pipelined stereo launches {launches}, expected {expect}")
+    over = {k: max(v) for k, v in waits.items() if v and max(v) > PIPE_SYNC_MAX[k]}
+    if over or not waits["dispatch"] or max(drained_waits, default=0) > PIPE_SYNC_MAX["dispatch"]:
+        raise AssertionError(f"pipelined stereo host waits over {PIPE_SYNC_MAX}: {over}, "
+                             f"drained dispatches {drained_waits}, sites {sites}")
+    if not same_b:
+        raise AssertionError(f"pipelined stereo: the repeat of frames 0-"
+                             f"{N_STEREO_PIPE_REPEAT - 1} differs")
+    if not share >= STEREO_OK_SHARE or not ur_err <= STEREO_UR_TOL:
+        raise AssertionError(f"pipelined stereo_match card and CPU disagree: {share}, {ur_err} px")
+    if not same_cpu or not cpu_diff < PIPE_TOL_M:
+        raise AssertionError(f"pipelined stereo: card and CPU disagree ({cpu_diff} m)")
+    for k in report:
+        report[k]["stereo_pipe_launches"] = launches.get(k, 0)
+
+
+def _phase20(smi, report):
+    """Phase 20: the KITTI runner with ``--pipelined`` at its own
+    configuration on ``testing.write_kitti_sequence`` of the stereo
+    workload.  Fills ``report[k]["kitti_pipe_launches"]``; any gate that
+    fails raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ydorbslam_tpu_torch.apps import run_kitti_stereo
+    from ydorbslam_tpu_torch.io.trajectory import ate_against_kitti_poses
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.slam import system as system_mod
+    from ydorbslam_tpu_torch.slam.system import SlamSystem
+    from ydorbslam_tpu_torch.testing import make_stereo_frames, write_kitti_sequence
+
+    frames, poses = make_stereo_frames(N_STEREO)
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "seq")
+    poses_path = write_kitti_sequence(root, frames, poses)
+    traj = os.path.join(tmp.name, "CameraTrajectory.txt")
+    secs, calls, pre = [], {"prep": 0, "finish": 0}, {}
+    orig = {"track": SlamSystem.track_stereo_pipelined, "pre": SlamSystem.precompile,
+            "shutdown": SlamSystem.shutdown, "prep": system_mod.mapping_prep,
+            "finish": system_mod.mapping_finish}
+
+    def track(self, *args):
+        t0 = time.perf_counter()
+        orig["track"](self, *args)
+        secs.append(time.perf_counter() - t0)
+
+    def precompile(self):
+        t0 = time.perf_counter()
+        orig["pre"](self)
+        pre["s"] = time.perf_counter() - t0
+        kernels.reset_launch_counts()  # the run's counts start after it
+        calls.update(prep=0, finish=0)
+
+    def shutdown(self):
+        t0 = time.perf_counter()
+        orig["shutdown"](self)
+        pre["flush"] = time.perf_counter() - t0
+
+    def prep(*args, **kwargs):
+        calls["prep"] += 1
+        return orig["prep"](*args, **kwargs)
+
+    def finish(*args, **kwargs):
+        calls["finish"] += 1
+        return orig["finish"](*args, **kwargs)
+
+    args = [root, "--pipelined", "--lag", str(PIPE_LAG), "--poses", poses_path,
+            "--out-trajectory", traj]
+    text = io.StringIO()
+    t_run = time.perf_counter()
+    try:
+        SlamSystem.track_stereo_pipelined, SlamSystem.precompile = track, precompile
+        SlamSystem.shutdown = shutdown
+        system_mod.mapping_prep, system_mod.mapping_finish = prep, finish
+        with contextlib.redirect_stdout(text):
+            system = run_kitti_stereo.main(args)
+        launches = kernels.launch_counts()
+    finally:
+        SlamSystem.track_stereo_pipelined, SlamSystem.precompile = orig["track"], orig["pre"]
+        SlamSystem.shutdown = orig["shutdown"]
+        system_mod.mapping_prep, system_mod.mapping_finish = orig["prep"], orig["finish"]
+    run_s = time.perf_counter() - t_run
+    cfg = system.cfg
+    stats = system.run_stats()
+    ate, pairs = ate_against_kitti_poses(traj, poses_path, len(frames))
+    n = len(frames)
+    steady = secs[N_STEREO_WARM:]
+    fps = len(steady) / (sum(steady) + pre["flush"])
+    print("phase 20 runner output: " + " | ".join(
+        line.strip() for line in text.getvalue().splitlines() if line.strip()), flush=True)
+    print(f"phase 20 KITTI runner --pipelined (lag {system._pipe_lag}, {cfg.camera.width}x"
+          f"{cfg.camera.height}, {cfg.n_keypoints} keypoint slots, capacities "
+          f"K={cfg.capacity.max_keyframes} M={cfg.capacity.max_map_points}, loop closing "
+          f"{'on' if system.loop_closer is not None else 'OFF'}): {stats['frames_total']} "
+          f"frames, lost {stats['frames_lost']} (JAX's runner --pipelined on a CPU "
+          f"{JAX_CPU_LOST_KITTI_PIPE}), ATE {ate:.6f} m over {pairs} pairs (JAX "
+          f"{JAX_CPU_ATE_KITTI_PIPE}), keyframes inserted {stats['keyframes_inserted']} (JAX "
+          f"{JAX_CPU_KF_KITTI_PIPE}) culled {stats['keyframes_culled']} live "
+          f"{stats['keyframes_live']}, mapping_prep {calls['prep']}, deferred local BAs "
+          f"{calls['finish']}, loops closed {stats['loops_closed']} (JAX "
+          f"{JAX_CPU_LOOPS_KITTI_PIPE}), launches {launches}, {fps:.3f} frames/s over frames "
+          f"{N_STEREO_WARM}-{len(secs) - 1} (dispatches plus the final shutdown "
+          f"{pre['flush'] * 1e3:.1f} ms), median dispatch "
+          f"{float(np.median(steady)) * 1e3:.3f} ms, precompile {pre['s']:.2f} s, run "
+          f"{run_s:.1f} s | {smi}", flush=True)
+    tmp.cleanup()
+    if stats["frames_total"] != n or ate is None or not np.isfinite(ate):
+        raise AssertionError(f"KITTI runner --pipelined: {stats['frames_total']} records, ATE {ate}")
+    if system.loop_closer is None or system._pipe_lag != PIPE_LAG or \
+            cfg.capacity.max_keyframes != 512 or cfg.orb.n_features != 1000:
+        raise AssertionError("KITTI runner --pipelined: not at its own configuration")
+    if stats["frames_lost"] > JAX_CPU_LOST_KITTI_PIPE or not ate <= 1.5 * JAX_CPU_ATE_KITTI_PIPE:
+        raise AssertionError(f"KITTI runner --pipelined: {stats['frames_lost']} lost, ATE {ate} "
+                             f"(JAX {JAX_CPU_LOST_KITTI_PIPE}, {JAX_CPU_ATE_KITTI_PIPE})")
+    if stats["loops_closed"] != JAX_CPU_LOOPS_KITTI_PIPE:
+        raise AssertionError(f"KITTI runner --pipelined: {stats['loops_closed']} loops")
+    if launches["fast_score_nms"] != 2 * n or launches["proj_best2"] < 3 * n or \
+            launches["pair_best2"] != 3 * calls["prep"] or \
+            launches["lm_obs"] < 17 * calls["finish"] or calls["finish"] < 1:
+        raise AssertionError(f"KITTI runner --pipelined launches {launches}: K1 {2 * n}, K2 >= "
+                             f"{3 * n}, K3 {3 * calls['prep']}, K4 >= {17 * calls['finish']}")
+    for k in report:
+        report[k]["kitti_pipe_launches"] = launches.get(k, 0)
+
+
 def _phase16(smi):
     """Phase 16: every exported helper the port added beside the JAX
     package's API (geometry, Hamming, blur, empty features, retrieval)
@@ -2259,7 +2793,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     print(f"phase 1 device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda} | numpy {np.__version__} | {os.cpu_count()} CPUs, torch "
+          f"{torch.get_num_threads()} threads", flush=True)
 
     # 2. build
     info = _build.build()
@@ -2598,29 +3133,26 @@ def main() -> int:
             cpu_sys.stats.local_ba_runs < 1:
         raise AssertionError("CPU and CUDA runs disagree with mapping on")
 
+    print(f"phases 1-11 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # 12. recovery on phase 8's map: kidnap and relocalization, the same
     # relocalization on the CPU, localization-only mode, the VO fallback.
     _phase12(system, frames, gt_poses, smi)
     del system
-
     # 13. loop closing on the card, on the revisit workload.
-    _phase13(smi, report)
-
     # 14. the stereo path on the card, at the KITTI-00 configuration.
-    _phase14(smi, report)
-
     # 15. the TUM runner at its default configuration, checkpoints and
     # re-calibration on the card.
-    _phase15(smi, report)
-
     # 16. the exported helpers on the card against the CPU.
-    _phase16(smi)
-
     # 17. the pipelined path at bench.py's configuration.
-    _phase17(smi, report)
-
     # 18. the TUM runner with --pipelined at its defaults.
-    _phase18(smi, report)
+    # 19. the pipelined stereo path at the KITTI-00 configuration.
+    # 20. the KITTI runner with --pipelined at its own configuration.
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    for number, phase in ((13, _phase13), (14, _phase14), (15, _phase15), (16, _phase16),
+                          (17, _phase17), (18, _phase18), (19, _phase19), (20, _phase20)):
+        phase(*((smi,) if number == 16 else (smi, report)))
+        print(f"phase {number} done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     rows = []
     for k, src, rep in (
@@ -2641,7 +3173,9 @@ def main() -> int:
                          loop_launches=r["loop_launches"],
                          stereo_launches=r["stereo_launches"],
                          tum_launches=r["tum_launches"], pipe_launches=r["pipe_launches"],
-                         tum_pipe_launches=r["tum_pipe_launches"]))
+                         tum_pipe_launches=r["tum_pipe_launches"],
+                         stereo_pipe_launches=r["stereo_pipe_launches"],
+                         kitti_pipe_launches=r["kitti_pipe_launches"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -480,13 +480,13 @@ def test_reset_keeps_the_pipelined_state(runs):
     np.testing.assert_array_equal(s._host_ref_pose, np.eye(4))
 
 
-def test_track_stereo_pipelined_raises():
-    s = SlamSystem(port_cfg(), Sensor.STEREO, enable_mapping=True, enable_loop_closing=False,
+@pytest.mark.parametrize("sensor, call", [(Sensor.STEREO, "track_rgbd_pipelined"),
+                                          (Sensor.RGBD, "track_stereo_pipelined")])
+def test_pipelined_call_of_the_other_sensor_raises(sensor, call):
+    s = SlamSystem(port_cfg(), sensor, enable_mapping=True, enable_loop_closing=False,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.track_stereo_pipelined(0.0, None, None)
     with pytest.raises(ValueError, match="sensor mismatch"):
-        s.track_rgbd_pipelined(0.0, None, None)
+        getattr(s, call)(0.0, None, None)
 
 
 def test_checkpoint_mid_run_resumes_pipelined(runs, tmp_path):

@@ -15,9 +15,10 @@ BA sums float32 normal equations in another order, and on this map of
 grows fast: 2.3e-3 m one frame later.  K1's dispatcher runs twice per
 frame (left and right), and a CPU run launches no CUDA kernel.
 
-The runner test writes a KITTI sequence directory (as
-``test_kitti_app.py`` does) and runs
-``python -m ydorbslam_tpu_torch.apps.run_kitti_stereo`` on it on the CPU.
+The runner tests write a KITTI sequence directory (as
+``test_kitti_app.py`` does) and run
+``python -m ydorbslam_tpu_torch.apps.run_kitti_stereo`` on it on the CPU,
+synchronous and with ``--pipelined``.
 """
 import dataclasses
 import os
@@ -166,11 +167,25 @@ def test_kitti_runner_on_the_cpu(kitti_dir, tmp_path, capsys):
         assert len(f.read().splitlines()) == 3
 
 
-@pytest.mark.parametrize("extra", [["--pipelined"], ["--lag", "4"]])
-def test_kitti_runner_refuses_what_is_not_ported(kitti_dir, extra, capsys):
-    with pytest.raises(SystemExit):
-        run_kitti_stereo.main([kitti_dir, "--device", "cpu", *extra])
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("extra, pipelined", [(["--pipelined", "--lag", "2"], True),
+                                              (["--lag", "4"], False)])
+def test_kitti_runner_takes_the_pipelined_arguments(kitti_dir, extra, pipelined, tmp_path,
+                                                    capsys):
+    """``--pipelined`` tracks through the pipelined path at ``--lag``;
+    ``--lag`` without ``--pipelined`` is accepted and leaves the
+    synchronous path, as in the JAX runner.  Pipelined, frame 1 is lost
+    while the map has one keyframe, and the JAX package's runner with the
+    same arguments loses it too (ROADMAP "The pipelined bootstrap loses
+    frames")."""
+    system = run_kitti_stereo.main([kitti_dir, "--device", "cpu", "--no-loop",
+                                    "--max-frames", "2", "--out-trajectory",
+                                    str(tmp_path / "traj.txt"), *extra])
+    out = capsys.readouterr().out
+    lost = 1 if pipelined else 0
+    assert f"frames        2  (lost {lost}" in out and "median tracking time:" in out, out
+    assert (system._dstate is not None) == pipelined and system._pending == []
+    if pipelined:
+        assert system._pipe_lag == 2
 
 
 def test_kitti_runner_refuses_the_multi_host_join(kitti_dir, monkeypatch, capsys):

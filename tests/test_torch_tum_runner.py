@@ -138,19 +138,26 @@ def test_runner_on_the_cpu(tum, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [["--pipelined"], ["--lag", "4"]])
-def test_runner_refuses_what_is_not_ported(tum, extra, capsys):
-    """The pipelined RGB-D path is ported, so the TUM runner takes
-    ``--pipelined`` and ``--lag`` (default 16; tests/test_torch_pipeline.py
-    runs it); the stereo runner, whose pipelined path is not ported,
-    still refuses both."""
+def test_runner_refuses_what_is_not_ported(tum, extra, monkeypatch, capsys):
+    """The pipelined paths are ported, so both runners take ``--pipelined``
+    and ``--lag`` (default 16; tests/test_torch_pipeline.py and
+    tests/test_torch_pipeline_stereo.py run them); with them, both still
+    refuse the multi-host join, which is not ported."""
     from ydorbslam_tpu_torch.apps import run_kitti_stereo
 
-    args = run_tum_rgbd.parse_arguments(
-        [tum["yaml"], tum["root"], tum["assoc"], "--device", "cpu", *extra])
-    assert (args.pipelined, args.lag) == (("--pipelined" in extra), 4 if "--lag" in extra else 16)
-    with pytest.raises(SystemExit):
-        run_kitti_stereo.main([tum["root"], "--device", "cpu", *extra])
-    assert "not ported" in capsys.readouterr().err
+    want = ("--pipelined" in extra, 4 if "--lag" in extra else 16)
+    tum_args = [tum["yaml"], tum["root"], tum["assoc"], "--device", "cpu", *extra]
+    kitti_args = [tum["root"], "--device", "cpu", *extra]
+    for parse, argv in ((run_tum_rgbd.parse_arguments, tum_args),
+                        (run_kitti_stereo.parse_arguments, kitti_args)):
+        args = parse(argv)
+        assert (args.pipelined, args.lag) == want
+    monkeypatch.setenv("YDORBSLAM_COORDINATOR", "localhost:1234")
+    for parse, argv in ((run_tum_rgbd.parse_arguments, tum_args),
+                        (run_kitti_stereo.parse_arguments, kitti_args)):
+        with pytest.raises(SystemExit):
+            parse(argv)
+        assert "not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("env", [("YDORBSLAM_COORDINATOR", "localhost:1234"),

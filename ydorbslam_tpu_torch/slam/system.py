@@ -43,9 +43,11 @@ draws.  ``update_calibration`` reloads the camera from a settings file as
 the JAX package does; ``slam/serialize.py`` checkpoints and restores a
 system.
 
-The pipelined RGB-D path (``enable_pipelined``, ``precompile``,
-``track_rgbd_pipelined``, ``flush_pipeline``) dispatches each frame as one
-device step (``slam/pipeline.py``) that makes no host wait, and decides
+The pipelined path (``enable_pipelined``, ``precompile``,
+``track_rgbd_pipelined`` or ``track_stereo_pipelined``, ``flush_pipeline``)
+dispatches each frame as one device step (``slam/pipeline.py``:
+``rgbd_frame_step``, or ``stereo_frame_step`` with two extractions and
+``stereo_match``) that makes no host wait, and decides
 a batch of frames a few frames late: one read of the ring's packed
 outcomes per drain, the keyframes of the batch inserted with the
 per-keyframe half of mapping (``mapping_prep``), one deferred local BA
@@ -54,8 +56,8 @@ around the keyframe nearest the newest pose, and one global-BA chunk of
 the loop closer.  The records of a drain decompose against a host copy
 of the reference keyframe's pose, taken from the packed snapshot of the
 last BA (read when the host next needs it) and patched at each
-insertion.  Not ported yet: the pipelined stereo path (ROADMAP Queue 1,
-the item after the RGB-D pipelined path).
+insertion.  The drains take either sensor's ring features alike: a
+stereo frame's ``right_u`` and depth come from ``stereo_match``.
 """
 from __future__ import annotations
 
@@ -87,7 +89,7 @@ from .mapping import (
 from .matchers import match_dense, match_local_points
 from .pipeline import (
     MODE_LOST, MODE_OK, RING, FrameInfo, TrackSet, clear_track_counters,
-    empty_track_state, fold_track_counters, read_ring, rgbd_frame_step,
+    empty_track_state, fold_track_counters, read_ring, rgbd_frame_step, stereo_frame_step,
 )
 from .retrieval import (
     add_keyframe, bow_histogram, detect_candidates, empty_index, remove_keyframes,
@@ -510,6 +512,23 @@ class SlamSystem:
             depth_scale=torch.full((), scale, dtype=torch.float32, device=self.device),
             **self._step_kw(),
         )
+        self._dispatched(timestamp)
+
+    def track_stereo_pipelined(self, timestamp, gray_l, gray_r) -> None:
+        """Stereo analogue of ``track_rgbd_pipelined``: a rectified pair,
+        uint8 or float32 (both the same), goes to the device as it is,
+        from pinned memory."""
+        if self.sensor != Sensor.STEREO:
+            raise ValueError("sensor mismatch: track_stereo_pipelined on a non-stereo system")
+        self._dstate = stereo_frame_step(
+            self._dstate, self._upload(gray_l), self._upload(gray_r), self._trkset, self.cam,
+            self.inv_sigma2_tab, self._depth_thr_dev, self.frame_id % RING, **self._step_kw(),
+        )
+        self._dispatched(timestamp)
+
+    def _dispatched(self, timestamp):
+        """After a frame's step: queue the frame, draw the viewer, and drain
+        once ``_effective_lag`` frames are pending."""
         self._pending.append((timestamp, self.frame_id))
         if self.viewer is not None:
             # The map view is current; the frame's features stay on the
@@ -518,12 +537,6 @@ class SlamSystem:
         self.frame_id += 1
         if len(self._pending) >= self._effective_lag:
             self._drain_batch()
-
-    def track_stereo_pipelined(self, timestamp, gray_l, gray_r) -> None:
-        raise NotImplementedError(
-            "the pipelined stereo path (stereo_frame_step) is not ported yet: ROADMAP "
-            "Queue 1, the pipelined stereo item"
-        )
 
     def flush_pipeline(self):
         while self._pending:
@@ -681,7 +694,8 @@ class SlamSystem:
 
     def precompile(self):
         """Run every steady-state program of the pipelined path once, on
-        scratch state: a frame step, ``read_ring``, a keyframe insertion,
+        scratch state: the sensor's frame step (a uint8 pair for stereo,
+        uint8 gray and uint16 depth for RGB-D), ``read_ring``, a keyframe insertion,
         ``mapping_prep``, ``mapping_finish`` at both local-BA capacity
         buckets, the retrieval index's add and removal, the tracking-set
         selection, and with loop closing on a detection, a verification
@@ -700,11 +714,19 @@ class SlamSystem:
         dev = self.device
         shape = (cfg.camera.height, cfg.camera.width)
         st = empty_track_state(cfg.n_keypoints, cap.tracking_points, device=dev)
-        st = rgbd_frame_step(
-            st, self._upload(np.zeros(shape, np.uint8)), self._upload(np.zeros(shape, np.uint16)),
-            self._trkset, self.cam, self.inv_sigma2_tab, self._depth_thr_dev, 0,
-            depth_scale=torch.full((), 1.0, dtype=torch.float32, device=dev), **self._step_kw(),
-        )
+        img8 = self._upload(np.zeros(shape, np.uint8))
+        if self.sensor == Sensor.STEREO:
+            st = stereo_frame_step(
+                st, img8, self._upload(np.zeros(shape, np.uint8)), self._trkset, self.cam,
+                self.inv_sigma2_tab, self._depth_thr_dev, 0, **self._step_kw(),
+            )
+        else:
+            st = rgbd_frame_step(
+                st, img8, self._upload(np.zeros(shape, np.uint16)), self._trkset, self.cam,
+                self.inv_sigma2_tab, self._depth_thr_dev, 0,
+                depth_scale=torch.full((), 1.0, dtype=torch.float32, device=dev),
+                **self._step_kw(),
+            )
         feats, mpid, T = read_ring(st, 0)
         m = MapState(*(a.clone() for a in self.map))
         m, _ = insert_keyframe(

@@ -10,13 +10,16 @@ duplicate edges and high degrees.  ``wall_ms`` and ``device_ms`` time a call on 
 and without the host's dispatch.  ``make_stereo_frames`` renders the
 stereo workload: a rectified pair sequence at the KITTI-00 camera.
 ``write_tum_sequence`` writes RGB-D frames to disk as a TUM sequence
-directory with its settings file (``TUM_RGBD_SETTINGS``).
+directory with its settings file (``TUM_RGBD_SETTINGS``), and
+``write_kitti_sequence`` stereo pairs as a KITTI odometry sequence
+directory at the KITTI-00 camera.
 
 At import this module needs only numpy and torch, nothing else of the
 package, so ``tools/time_kernels.py`` can load it by path beside another
 checkout's package and call its generators and timers.
 ``write_tum_sequence`` imports PIL and the package's ``io.trajectory``
-when called, so it is called through the package.
+when called, so it is called through the package; ``write_kitti_sequence``
+imports PIL when called.
 """
 from __future__ import annotations
 
@@ -399,3 +402,38 @@ def write_tum_sequence(root, frames, poses, yaml_settings):
         f.writelines(assoc)
     write_tum_trajectory(paths[2], [t for t, _, _ in frames], poses)
     return tuple(paths)
+
+
+def write_kitti_sequence(root, frames, poses):
+    """Write rectified stereo ``frames`` ((timestamp, uint8 left, uint8
+    right), as ``make_stereo_frames`` makes them) and their ground-truth
+    T_cw ``poses`` under ``root`` as a KITTI odometry sequence directory:
+    ``image_0/NNNNNN.png`` and ``image_1/NNNNNN.png`` (8-bit gray),
+    ``times.txt``, ``calib.txt`` with the P0 and P1 rows of the KITTI-00
+    camera (``KITTI00``; P1's fourth entry is -bf) and ``poses.txt``
+    (camera-to-world, the 3x4 rows of KITTI's ground truth).  Both
+    packages' ``KittiStereoDataset`` read the images back bit for bit and
+    their ``kitti_intrinsics`` read ``KITTI00``'s fx, fy, cx, cy and bf.
+    Returns the path of ``poses.txt``."""
+    from PIL import Image
+
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i, (_, left, right) in enumerate(frames):
+        for sub, img in (("image_0", left), ("image_1", right)):
+            Image.fromarray(np.ascontiguousarray(img, dtype=np.uint8)).save(
+                os.path.join(root, sub, f"{i:06d}.png"))
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.writelines(f"{t:.6e}\n" for t, _, _ in frames)
+    c = KITTI00
+    P0 = np.array([[c["fx"], 0.0, c["cx"], 0.0], [0.0, c["fy"], c["cy"], 0.0],
+                   [0.0, 0.0, 1.0, 0.0]])
+    P1 = P0.copy()
+    P1[0, 3] = -c["bf"]
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        for name, P in (("P0", P0), ("P1", P1)):
+            f.write(f"{name}: " + " ".join(f"{x:.12e}" for x in P.reshape(-1)) + "\n")
+    path = os.path.join(root, "poses.txt")
+    np.savetxt(path, np.stack([np.linalg.inv(T)[:3, :].reshape(-1) for T in poses]),
+               fmt="%.12e")
+    return path
