@@ -245,6 +245,24 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      ground-truth pose) within 1.5x of JAX's; the loops closed equal to
      JAX's; K1 exactly twice and K2 at least 3 times per frame, K3 3x per
      ``mapping_prep``, K4 at least 17x per deferred BA.
+ 21. the sharded paths (``parallel/``) on phase 13's first global BA as
+     ``_start_global_ba`` armed it (C = 161, P = 16,384, O = 16) and its
+     final map: (a) a world of one NCCL rank in this process, two
+     point-sharded LM chunks (``_sharded_lm_chunk``) bit-equal to two
+     ``_lm_chunk`` calls, K4 6x per chunk and nothing else launched, the
+     keyframe-sharded detection on the last keyframe identical to
+     ``_detect`` and ``score_all_sharded`` bit-equal to ``score_all``, with
+     the synchronised ms of each chunk in both forms; (b) the TUM runner in
+     a child process under the ``YDORBSLAM_*`` trio for a world of one
+     (NCCL) on a 10-frame TUM directory: its ``distributed:`` line with
+     ``process_count`` 1, 0 lost; (c) two gloo ranks spawned on the card
+     (``parallel.launch.spawn_ranks``, ``testing.sharded_chunk_rank``): the
+     same two chunks within 2e-4 (T) and 2e-3 (p) of (a)'s dense ones, both
+     ranks' T and damping bit-equal, K4 6x per chunk per rank on
+     (32, 16, 8192), rank 0's first K4 input held to plain within rtol
+     2e-4, atol 2e-3 (a refusal of CUDA tensors by gloo is printed instead);
+     (d) the same over NCCL with one rank per card when the machine has two
+     cards or more, else a line saying it was not run.
 
 Each phase from 12 on prints the seconds since the start when it ends.
 
@@ -262,8 +280,9 @@ phase 14 (``stereo_launches``), in the TUM runner's run of phase 15
 (``tum_launches``), in the pipelined path of phase 17
 (``pipe_launches``), in the pipelined runner of phase 18
 (``tum_pipe_launches``), in the pipelined stereo path of phase 19
-(``stereo_pipe_launches``) and in the pipelined KITTI runner of phase 20
-(``kitti_pipe_launches``), max abs
+(``stereo_pipe_launches``), in the pipelined KITTI runner of phase 20
+(``kitti_pipe_launches``) and in phase 21's sharded chunks
+(``parallel_launches``), max abs
 error, device ms per call on the main path's input (K1: per frame of 8
 levels, one launch) and that of the plain version, the bound on that
 input (the larger of its bytes over 3.35 TB/s and its operations over
@@ -289,6 +308,14 @@ N_OFF = 60  # frames of the mapping-off path
 JAX_CPU_ATE_MAPPING = 0.001814043883989798
 N_PAR_MAP = 30  # CPU parity frames with mapping on: keyframe 3 and its local BA at frame 26
 K4_RTOL, K4_ATOL = 2e-4, 2e-3
+N_JOIN = 10  # frames the TUM runner tracks in phase 21's world of one
+# Phase 21 (c): the robust cost of two sharded global-BA chunks against the
+# dense chunks', relative.  On phase 13's problem a mere reorder of the dense
+# chunks' float32 sums (the points permuted) moves that cost by up to 2.2e-4,
+# the poses by up to 2.2e-3 and a weakly held point by 0.8 m (PERF.md §6), so
+# the two chunks' T and p are printed beside that spread, and one LM
+# iteration carries the JAX package's 2e-4 (T) / 2e-3 (p).
+COST_RTOL = 1e-3
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
 HBM_BYTES_S = 3.35e12
@@ -861,7 +888,10 @@ def _phase13(smi, report):
     """Phase 13: loop closing on the card over the revisit workload, the
     accepted loop event again on the CPU, and K2/K4 on the loop path's
     captured inputs.  Fills ``report[k]["loop_launches"]``; any gate that
-    fails raises."""
+    fails raises.  Returns what phase 21 runs on: the first global BA as
+    ``_start_global_ba`` armed it (``prob``, ``T``, ``p``, ``lam``), the
+    camera and configuration, the final map and retrieval index, and the
+    last keyframe's id."""
     import numpy as np
     import torch
 
@@ -994,6 +1024,15 @@ def _phase13(smi, report):
                             k2={k[1]: v for k, v in captured.items() if k[0] == "k2"})
         return closed
 
+    def keep_gba(self, m, n_valid):
+        """The first global BA as it was armed, kept for phase 21."""
+        out = orig_start(self, m, n_valid)
+        if "gba" not in captured:
+            g = self._gba
+            captured["gba"] = dict(prob=schur.BAProblem(*(x.clone() for x in g["prob"])),
+                                   T=g["T"].clone(), p=g["p"].clone(), lam=g["lam"].clone())
+        return out
+
     def keep_graph(prob, **kwargs):
         """The first essential graph (the accepted loop event's) is kept
         for the reproducibility gate."""
@@ -1005,6 +1044,7 @@ def _phase13(smi, report):
     timed_chunk = sync_timed(loop_impl._lm_chunk, "chunk", "chunk")
     timed_verify = sync_timed(loop_impl._verify_pack, "verify", "verify")
     orig_poll = Impl._poll_pending
+    orig_start = Impl._start_global_ba
     counted_poll = synced(orig_poll, "poll")
     patches = [
         (matchers, "proj_best2", keep_k2), (schur, "lm_obs", keep_k4),
@@ -1018,7 +1058,7 @@ def _phase13(smi, report):
         (Impl, "_essential_graph", sync_timed(Impl._essential_graph, "essential")),
         (Impl, "_compute_sim3", synced(Impl._compute_sim3, "verify")),
         (Impl, "_correct", synced(Impl._correct, "correct")),
-        (Impl, "_poll_pending", poll),
+        (Impl, "_poll_pending", poll), (Impl, "_start_global_ba", keep_gba),
         (Impl, "process", counted(Impl.process)), (Impl, "flush", counted(Impl.flush)),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -1197,6 +1237,10 @@ def _phase13(smi, report):
           flush=True)
     for k in report:
         report[k]["loop_launches"] = loop_launch.get(k, 0)
+    m = system.map
+    last_kf = int(torch.argmax(torch.where(m.kf_valid, m.kf_frame_id, -1)))
+    return dict(gba=captured["gba"], cam=system.cam, cfg=system.cfg, map=m,
+                retrieval=system.retrieval, kf=last_kf)
 
 
 def _graph_gate(graph, smi):
@@ -2760,6 +2804,209 @@ def _phase16(smi):
           f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
 
 
+def _phase21(smi, report, loop):
+    """Phase 21: the sharded paths (``parallel/``) on the card, on phase
+    13's global BA (C = 161, P = 16,384, O = 16) and final map.  (a) A
+    world of one NCCL rank in this process: two point-sharded LM chunks
+    bit-equal to two ``_lm_chunk`` calls, K4 6x per chunk; sharded
+    detection and scores identical to the dense ones.  (b) The TUM runner
+    joins a world of one through the ``YDORBSLAM_*`` trio in a child
+    process and tracks 10 frames.  (c) Two gloo ranks spawned on this
+    card: the same two chunks within 2e-4 (T) and 2e-3 (p) of the dense
+    ones, the ranks bit-equal, K4 6x per chunk per rank on
+    (32, 16, P/2), rank 0's first K4 input held to plain.  (d) The same
+    over NCCL, one rank per card, when there are two cards or more.
+    Fills ``report[k]["parallel_launches"]`` (the sharded chunks of
+    (a)); any gate that fails raises."""
+    import re
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bench
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.optim import schur
+    from ydorbslam_tpu_torch.parallel.ba_sharded import _sharded_lm_chunk
+    from ydorbslam_tpu_torch.parallel.launch import spawn_ranks
+    from ydorbslam_tpu_torch.parallel.multihost import ShardGroup
+    from ydorbslam_tpu_torch.parallel.retrieval_sharded import score_all_sharded
+    from ydorbslam_tpu_torch.slam import loop_impl
+    from ydorbslam_tpu_torch.slam.retrieval import bow_histogram, score_all
+    from ydorbslam_tpu_torch.testing import (
+        TUM_RGBD_SETTINGS, free_port, sharded_chunk_rank, write_tum_sequence,
+    )
+
+    t_start = time.perf_counter()
+    gba, cam, cfg = loop["gba"], loop["cam"], loop["cfg"]
+    prob = gba["prob"]
+    n_chunks = 2
+
+    def two_chunks(step):
+        T, p, lam = gba["T"], gba["p"], gba["lam"]
+        ms, launches = [], []
+        for _ in range(n_chunks):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()["lm_obs"]
+            t0 = time.perf_counter()
+            T, p, lam = step(T, p, lam)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(kernels.launch_counts()["lm_obs"] - before)
+        return T, p, lam, ms, launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a world of one NCCL rank
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                rank=0, world_size=1)
+        try:
+            g = ShardGroup(dist.group.WORLD, 0, 1, "pts")
+            dT, dp, dlam, dms, _ = two_chunks(
+                lambda T, p, lam: schur._lm_chunk(cam, prob, T, p, lam, chunk=5))
+            kernels.reset_launch_counts()
+            sT, sp, slam, sms, sl = two_chunks(
+                lambda T, p, lam: _sharded_lm_chunk(g, cam, prob, T, p, lam, 5, True))
+            par = kernels.launch_counts()
+            m, idx, kf = loop["map"], loop["retrieval"], loop["kf"]
+            C = cfg.capacity.loop_candidates
+            args = (m, idx, kf, torch.zeros((C, m.K), dtype=torch.bool, device=m.device),
+                    torch.full((C,), -1, dtype=torch.int32, device=m.device), C,
+                    cfg.loop.covisibility_consistency_th)
+            kw = dict(n_banks=cfg.loop.retrieval_banks, bank_bits=cfg.loop.retrieval_bank_bits,
+                      min_frame_gap=cfg.loop.min_frame_gap)
+            gk = g._replace(axis_name="kf")
+            dense_det = loop_impl._detect(*args, **kw)
+            shard_det = loop_impl._detect(*args, **kw, group=gk)
+            q = bow_histogram(m.kf_desc[kf], m.kf_kp_valid[kf], cfg.loop.retrieval_banks,
+                              cfg.loop.retrieval_bank_bits)
+            same_scores = all(torch.equal(a, b) for a, b in zip(score_all_sharded(gk, idx, q),
+                                                                 score_all(idx, q)))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+        same_chunks = torch.equal(sT, dT) and torch.equal(sp, dp) and torch.equal(slam, dlam)
+        # What (c) is held to: one LM iteration, the dense chunks' cost, and
+        # the dense chunks of the points in another order (the same sums
+        # in another order, as the ranks' split makes them).
+        T1, p1, _ = schur._lm_chunk(cam, prob, gba["T"], gba["p"], gba["lam"], chunk=1)
+        perm = torch.from_numpy(np.random.default_rng(0).permutation(prob.P)).to(prob.p_w.device)
+        pprob = prob._replace(**{k: getattr(prob, k)[perm] for k in (
+            "p_w", "pt_valid", "obs_cam", "obs_uvr", "obs_inv_sigma2", "obs_stereo", "obs_valid")})
+        qT, qp, qlam = pprob.T_cw, pprob.p_w, gba["lam"]
+        for _ in range(n_chunks):
+            qT, qp, qlam = schur._lm_chunk(cam, pprob, qT, qp, qlam, chunk=5)
+        qp = qp[torch.argsort(perm)]
+        flat = schur._flatten_obs(prob)
+
+        def cost(T, p):
+            return float(schur._flat_cost(cam, T.to(flat.E.device), p.to(flat.E.device), flat,
+                                          schur._po_flat(prob.obs_valid), True))
+
+        d_cost = cost(dT, dp)
+        spread_T = float((qT - dT).abs().max())
+        spread_p = float((qp - dp).abs().max())
+        spread_cost = abs(cost(qT, qp) - d_cost) / d_cost
+        same_det = all(torch.equal(a, b) for a, b in zip(shard_det, dense_det))
+        n_cand = int((dense_det[0] >= 0).sum())
+        print(f"phase 21 (a) one NCCL rank on phase 13's global BA (C={prob.C}, P={prob.P}, "
+              f"O={prob.O}): {n_chunks} sharded chunks "
+              f"{'bit-equal' if same_chunks else 'DIFFERENT'} to _lm_chunk (T, p, lam "
+              f"{float(dlam):.3e}), K4 launches per sharded chunk {sl}, launches {par}; "
+              f"synchronised ms per chunk dense {[round(x, 3) for x in dms]} sharded "
+              f"{[round(x, 3) for x in sms]}; detection on the final map (keyframe {kf}, "
+              f"{n_cand} candidates) {'identical' if same_det else 'DIFFERENT'}, "
+              f"score_all_sharded {'bit-equal' if same_scores else 'DIFFERENT'} | {smi}",
+              flush=True)
+        if not same_chunks or not same_det or not same_scores or sl != [6] * n_chunks or \
+                any(v for k, v in par.items() if k != "lm_obs"):
+            raise AssertionError("phase 21 (a): the world of one is not the dense path")
+
+        # (b) the TUM runner joins a world of one in a child process; (c)
+        # runs while it does.
+        root = os.path.join(tmp, "tum")
+        frames = bench.make_frames(N_JOIN)
+        from synthetic import oscillating_trajectory  # bench put tests/ on sys.path
+
+        yaml, assoc, _ = write_tum_sequence(root, frames, oscillating_trajectory(N_JOIN),
+                                            TUM_RGBD_SETTINGS)
+        env = dict(os.environ, YDORBSLAM_COORDINATOR=f"127.0.0.1:{free_port()}",
+                   YDORBSLAM_NUM_PROCESSES="1", YDORBSLAM_PROCESS_ID="0")
+        runner = subprocess.Popen(
+            [sys.executable, "-m", "ydorbslam_tpu_torch.apps.run_tum_rgbd", yaml, root, assoc,
+             "--max-frames", str(N_JOIN), "--out-trajectory", os.path.join(tmp, "traj.txt"),
+             "--out-kf-trajectory", os.path.join(tmp, "kf.txt")],
+            env=env, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            inp = dict(cam=tuple(float(x) if isinstance(x, torch.Tensor) else x for x in cam),
+                       prob={k: v.cpu().numpy() for k, v in prob._asdict().items()},
+                       lam=float(gba["lam"]), chunks=n_chunks, rtol=K4_RTOL, atol=K4_ATOL)
+            worlds = [("(c) two gloo ranks on one card", "gloo", 2)]
+            n_cards = torch.cuda.device_count()
+            if n_cards >= 2:
+                worlds.append((f"(d) NCCL across {n_cards} cards", "nccl", n_cards))
+            for label, backend, world in worlds:
+                t0 = time.perf_counter()
+                try:
+                    ranks = spawn_ranks(sharded_chunk_rank, world, os.path.join(tmp, backend),
+                                        backend=backend, device="cuda", args=(inp,),
+                                        timeout=300)
+                except Exception as e:  # noqa: BLE001 (a refusal is reported, see below)
+                    msg = str(e)
+                    if backend == "gloo" and "gloo" in msg.lower() and any(
+                            w in msg for w in ("not supported", "unsupported", "Unsupported")):
+                        print(f"phase 21 {label}: gloo refused CUDA tensors: "
+                              f"{msg.strip().splitlines()[-1]} | {smi}", flush=True)
+                        continue
+                    raise
+                secs = time.perf_counter() - t0
+                step_T = max(float((r["step_T"] - T1.cpu()).abs().max()) for r in ranks)
+                step_p = max(float((r["step_p"] - p1.cpu()).abs().max()) for r in ranks)
+                t_err = max(float((r["T"] - dT.cpu()).abs().max()) for r in ranks)
+                p_err = max(float((r["p"] - dp.cpu()).abs().max()) for r in ranks)
+                cost_err = abs(cost(ranks[0]["T"], ranks[0]["p"]) - d_cost) / d_cost
+                same = all(torch.equal(r["T"], ranks[0]["T"]) and
+                           torch.equal(r["lam"], ranks[0]["lam"]) and
+                           torch.equal(r["p"], ranks[0]["p"]) for r in ranks)
+                print(f"phase 21 {label}: {world} ranks; one LM iteration: T within "
+                      f"{step_T:.3e}, p within {step_p:.3e} of the dense one; {n_chunks} chunks: "
+                      f"T within {t_err:.3e}, p within {p_err:.3e}, cost within {cost_err:.3e} "
+                      f"(relative, of {d_cost:.6g}) of the dense chunks, where the dense chunks "
+                      f"of the points permuted (seed 0) are {spread_T:.3e}, {spread_p:.3e} and "
+                      f"{spread_cost:.3e} from them; ranks "
+                      f"{'bit-equal' if same else 'DIFFERENT'} in T, p and lam; K4 launches per "
+                      f"chunk per rank {[r['launches'] for r in ranks]} on "
+                      f"{ranks[0]['k4_shape']}; K4 on rank 0's shard against plain max abs error "
+                      f"{ranks[0]['max_abs_err']:.3e}; synchronised ms per chunk per rank "
+                      f"{[[round(x, 3) for x in r['ms']] for r in ranks]}; {secs:.1f} s with the "
+                      f"spawn | {smi}", flush=True)
+                if not step_T < 2e-4 or not step_p < 2e-3 or not cost_err < COST_RTOL or \
+                        not same or \
+                        any(r["launches"] != [6] * n_chunks for r in ranks) or \
+                        ranks[0]["k4_shape"] != [32, prob.O, prob.P // world] or \
+                        ranks[0]["max_abs_err"] is None:
+                    raise AssertionError(f"phase 21 {label}: the sharded chunks disagree")
+            if n_cards < 2:
+                print(f"phase 21 (d) NCCL across cards: not run, this machine has {n_cards} "
+                      f"card | {smi}", flush=True)
+            out, _ = runner.communicate(timeout=300)
+        finally:
+            if runner.poll() is None:
+                runner.kill()
+                runner.communicate()
+    dist_line = next((l for l in out.splitlines() if l.startswith("distributed:")), None)
+    stats = re.search(r"frames\s+(\d+)\s+\(lost (\d+)", out)
+    print(f"phase 21 (b) the TUM runner under the YDORBSLAM_* trio, world of one: exit "
+          f"{runner.returncode}, {dist_line!r}, frames and lost "
+          f"{stats.groups() if stats else None} | {smi}", flush=True)
+    if runner.returncode != 0 or dist_line is None or "'process_count': 1" not in dist_line or \
+            not stats or stats.groups() != (str(N_JOIN), "0"):
+        raise AssertionError(f"phase 21 (b): the runner's join failed:\n{out[-3000:]}")
+    for k in report:
+        report[k]["parallel_launches"] = par.get(k, 0)
+    print(f"phase 21 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3149,10 +3396,15 @@ def main() -> int:
     # 19. the pipelined stereo path at the KITTI-00 configuration.
     # 20. the KITTI runner with --pipelined at its own configuration.
     print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    for number, phase in ((13, _phase13), (14, _phase14), (15, _phase15), (16, _phase16),
-                          (17, _phase17), (18, _phase18), (19, _phase19), (20, _phase20)):
+    # 21. the sharded paths on the card, on phase 13's global BA and map.
+    loop = _phase13(smi, report)
+    print(f"phase 13 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    for number, phase in ((14, _phase14), (15, _phase15), (16, _phase16), (17, _phase17),
+                          (18, _phase18), (19, _phase19), (20, _phase20)):
         phase(*((smi,) if number == 16 else (smi, report)))
         print(f"phase {number} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    _phase21(smi, report, loop)
+    print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     rows = []
     for k, src, rep in (
@@ -3175,7 +3427,8 @@ def main() -> int:
                          tum_launches=r["tum_launches"], pipe_launches=r["pipe_launches"],
                          tum_pipe_launches=r["tum_pipe_launches"],
                          stereo_pipe_launches=r["stereo_pipe_launches"],
-                         kitti_pipe_launches=r["kitti_pipe_launches"]))
+                         kitti_pipe_launches=r["kitti_pipe_launches"],
+                         parallel_launches=r["parallel_launches"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

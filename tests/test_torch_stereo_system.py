@@ -188,11 +188,38 @@ def test_kitti_runner_takes_the_pipelined_arguments(kitti_dir, extra, pipelined,
         assert system._pipe_lag == 2
 
 
-def test_kitti_runner_refuses_the_multi_host_join(kitti_dir, monkeypatch, capsys):
+def test_kitti_runner_refuses_the_multi_host_join(kitti_dir, tmp_path, monkeypatch, capsys):
+    """The runner refuses a coordinator given without world size and
+    rank, and joins a complete one: here a world of one gloo rank on the
+    CPU, where it prints the JAX runner's ``distributed:`` line, tracks and
+    writes its trajectory as rank 0.  The group is destroyed afterwards,
+    so the next test in this process starts without one."""
+    import torch.distributed as dist
+
+    from ydorbslam_tpu_torch.testing import free_port
+
+    for k in ("YDORBSLAM_NUM_PROCESSES", "YDORBSLAM_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("YDORBSLAM_COORDINATOR", "localhost:1234")
     with pytest.raises(SystemExit):
         run_kitti_stereo.main([kitti_dir, "--device", "cpu"])
-    assert "not ported" in capsys.readouterr().err
+    assert "YDORBSLAM_COORDINATOR is set without" in capsys.readouterr().err
+    monkeypatch.setenv("YDORBSLAM_COORDINATOR", f"127.0.0.1:{free_port()}")
+    monkeypatch.setenv("YDORBSLAM_NUM_PROCESSES", "1")
+    monkeypatch.setenv("YDORBSLAM_PROCESS_ID", "0")
+    traj = tmp_path / "traj.txt"
+    try:
+        system = run_kitti_stereo.main([kitti_dir, "--device", "cpu", "--no-loop",
+                                        "--max-frames", "2", "--out-trajectory", str(traj)])
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert ("distributed: {'process_index': 0, 'process_count': 1, 'local_devices': 1, "
+            "'global_devices': 1}") in out, out
+    assert "frames        2  (lost 0" in out and traj.exists()
+    assert system.loop_closer is None
 
 
 def test_kitti_runner_needs_a_card_by_default(kitti_dir):

@@ -139,10 +139,11 @@ def test_runner_on_the_cpu(tum, tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [["--pipelined"], ["--lag", "4"]])
 def test_runner_refuses_what_is_not_ported(tum, extra, monkeypatch, capsys):
-    """The pipelined paths are ported, so both runners take ``--pipelined``
-    and ``--lag`` (default 16; tests/test_torch_pipeline.py and
-    tests/test_torch_pipeline_stereo.py run them); with them, both still
-    refuse the multi-host join, which is not ported."""
+    """Everything is ported: both runners take ``--pipelined`` and
+    ``--lag`` (default 16; tests/test_torch_pipeline.py and
+    tests/test_torch_pipeline_stereo.py run them) and the multi-process
+    join; with them, both refuse a coordinator given without the world
+    size and rank, before they join or read a frame."""
     from ydorbslam_tpu_torch.apps import run_kitti_stereo
 
     want = ("--pipelined" in extra, 4 if "--lag" in extra else 16)
@@ -157,16 +158,25 @@ def test_runner_refuses_what_is_not_ported(tum, extra, monkeypatch, capsys):
                         (run_kitti_stereo.parse_arguments, kitti_args)):
         with pytest.raises(SystemExit):
             parse(argv)
-        assert "not ported" in capsys.readouterr().err
+        assert "YDORBSLAM_COORDINATOR is set without" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("env", [("YDORBSLAM_COORDINATOR", "localhost:1234"),
                                  ("YDORBSLAM_AUTO_DISTRIBUTED", "1")])
 def test_runner_refuses_the_multi_host_join(tum, env, monkeypatch, capsys):
+    """A join the environment asks for without saying how (a coordinator
+    without world size and rank; the automatic join outside torchrun's
+    environment) stops the runner before it tracks a frame.
+    tests/test_torch_multihost.py runs the join itself."""
+    for k in ("YDORBSLAM_NUM_PROCESSES", "YDORBSLAM_PROCESS_ID", "RANK", "WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv(*env)
     with pytest.raises(SystemExit):
         run_tum_rgbd.main([tum["yaml"], tum["root"], tum["assoc"], "--device", "cpu"])
-    assert "multi-host join is not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("is set without YDORBSLAM_NUM_PROCESSES, YDORBSLAM_PROCESS_ID" in err
+            if env[0] == "YDORBSLAM_COORDINATOR" else "needs torchrun's environment" in err), err
 
 
 def test_runner_needs_a_card_by_default(tum):

@@ -4,9 +4,9 @@ The JAX package beside this one is the reference; this package mirrors
 its module layout and names so each module's counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or ``ydorbslam_tpu``.
 
-What is ported so far is the synchronous and the pipelined RGB-D and
-stereo paths with local mapping on or off and loop closing
-(``slam.system.SlamSystem``; the pipelined device step in
+Every module of the JAX package is ported: the synchronous and the
+pipelined RGB-D and stereo paths with local mapping on or off and loop
+closing (``slam.system.SlamSystem``; the pipelined device step in
 ``slam.pipeline``):
 ORB extraction, RGB-D depth association and stereo matching, projection
 matching, pose-only LM, local-map tracking, keyframe insertion and local
@@ -16,7 +16,11 @@ loop closing with global BA, checkpoints (``slam.serialize``, in the
 JAX package's file format), run-time re-calibration, the headless
 viewer (``viz.headless``), and the TUM RGB-D and KITTI stereo runners
 (``python -m ydorbslam_tpu_torch.apps.run_tum_rgbd`` and
-``...apps.run_kitti_stereo``, each with ``--pipelined``).  The four TPU
+``...apps.run_kitti_stereo``, each with ``--pipelined``), and the
+multi-process run (``parallel``: one rank per GPU over
+``torch.distributed``; loop closing shards its detection's scores and its
+global BA's points over the ranks, and the runners join through the
+``YDORBSLAM_*`` environment or ``torchrun``).  The four TPU
 kernels on that path have hand-written CUDA counterparts for Hopper
 (``csrc/``); every kernel has a plain PyTorch version of the same
 contract that CPU tensors take.

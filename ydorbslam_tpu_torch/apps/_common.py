@@ -1,10 +1,12 @@
 """What the port's sequence runners share: the arguments that choose the
-device and the viewer, the refusal of the multi-host join and of a
-missing card, and the timed frame loop with its report."""
-import os
+device and the viewer, the refusal of a missing card and of an
+incomplete multi-process environment, the multi-process join, and the
+timed frame loop with its report."""
 import time
 
 import torch
+
+from ..parallel import multihost
 
 
 def add_port_arguments(ap) -> None:
@@ -15,15 +17,26 @@ def add_port_arguments(ap) -> None:
 
 
 def check_arguments(ap, args) -> None:
-    """Stop with an error on the multi-host join of the
-    ``YDORBSLAM_COORDINATOR`` / ``YDORBSLAM_AUTO_DISTRIBUTED``
-    environment, which is not ported, and on a CUDA device that is not
-    there: no CPU fallback."""
-    if os.environ.get("YDORBSLAM_COORDINATOR") or \
-            os.environ.get("YDORBSLAM_AUTO_DISTRIBUTED") == "1":
-        ap.error("the multi-host join is not ported to the PyTorch package")
+    """Stop with an error on a CUDA device that is not there (no CPU
+    fallback) and on a multi-process environment that asks to join
+    without saying how (``multihost.environment_error``)."""
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device found (pass --device cpu to run on the CPU)")
+    err = multihost.environment_error()
+    if err:
+        ap.error(err)
+
+
+def join(args) -> bool:
+    """Join the multi-process run that the environment asks for
+    (``YDORBSLAM_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID``, or
+    ``YDORBSLAM_AUTO_DISTRIBUTED=1`` under ``torchrun``; NCCL on the card,
+    gloo on the CPU) and print the JAX runner's ``distributed:`` line.
+    Returns whether this process writes the run's files: rank 0 does, as
+    every rank tracks the same frames to the same result."""
+    if multihost.initialize_distributed(args.device):
+        print(f"distributed: {multihost.process_info()}")
+    return multihost.is_writer()
 
 
 def track_frames(system, args, n: int, frame, track, progress_every: int,
@@ -35,7 +48,7 @@ def track_frames(system, args, n: int, frame, track, progress_every: int,
     inlier count if ``inliers``), and once the system is shut down the
     median and mean tracking time after the third frame
     (test.cpp:98-106).  Returns the per-frame seconds."""
-    if args.viewer_dir:
+    if args.viewer_dir and multihost.is_writer():
         system.attach_viewer(args.viewer_dir, every=args.viewer_every)
     cuda = wait and system.device.type == "cuda"
     times = []

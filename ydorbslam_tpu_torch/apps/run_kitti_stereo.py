@@ -17,16 +17,18 @@ JAX runner) and ``precompile()``, dispatches every pair with
 ``track_stereo_pipelined`` and times each dispatch.  ``--viewer-dir``
 writes a frame and a map PNG every ``--viewer-every`` frames.  It runs on
 the card (``--device cuda``, the default) and fails when there is none;
-``--device cpu`` runs the plain versions of the kernels.  Not ported:
-the multi-host join (the ``YDORBSLAM_COORDINATOR`` /
-``YDORBSLAM_AUTO_DISTRIBUTED`` environment), which stops the runner with
-an error.  ``main`` returns the shut-down system.
+``--device cpu`` runs the plain versions of the kernels.  In a
+multi-process environment (``YDORBSLAM_COORDINATOR`` /
+``YDORBSLAM_NUM_PROCESSES`` / ``YDORBSLAM_PROCESS_ID``, or
+``YDORBSLAM_AUTO_DISTRIBUTED=1`` under ``torchrun``) it joins first and
+prints ``distributed: {...}``; only rank 0 writes the trajectory and the
+PNGs.  ``main`` returns the shut-down system.
 """
 import argparse
 import dataclasses
 import os
 
-from ._common import add_port_arguments, check_arguments, print_stats, track_frames
+from ._common import add_port_arguments, check_arguments, join, print_stats, track_frames
 
 
 def parse_arguments(argv=None):
@@ -50,6 +52,7 @@ def parse_arguments(argv=None):
 
 def main(argv=None):
     args = parse_arguments(argv)
+    writer = join(args)
     from ..config import SlamConfig, load_config
     from ..io import KittiStereoDataset, kitti_intrinsics
     from ..io.trajectory import ate_against_kitti_poses
@@ -77,10 +80,11 @@ def main(argv=None):
     track = system.track_stereo_pipelined if args.pipelined else system.track_stereo
     track_frames(system, args, n, ds.__getitem__, track, 100, inliers=False,
                  wait=not args.pipelined)
-    system.save_trajectory_tum(args.out_trajectory)
+    if writer:
+        system.save_trajectory_tum(args.out_trajectory)
     print_stats(system)
 
-    if args.poses:
+    if args.poses and writer:
         ate, _ = ate_against_kitti_poses(args.out_trajectory, args.poses, len(ds))
         if ate is not None:
             print(f"ATE RMSE: {ate:.3f} m")

@@ -23,13 +23,18 @@ dispatches every frame with ``track_rgbd_pipelined`` and times each
 dispatch, as the JAX runner does; with ``YDORBSLAM_TRACE_FRAMES`` set it
 prints the per-frame trace after the run stats.  It runs on the card
 (``--device cuda``, the default) and fails when there is none;
-``--device cpu`` runs the plain versions of the kernels.  Not ported:
-the multi-host join, which stops the runner with an error.  ``main``
-returns the shut-down system.
+``--device cpu`` runs the plain versions of the kernels.  In a
+multi-process environment (``YDORBSLAM_COORDINATOR`` /
+``YDORBSLAM_NUM_PROCESSES`` / ``YDORBSLAM_PROCESS_ID``, or
+``YDORBSLAM_AUTO_DISTRIBUTED=1`` under ``torchrun``) it joins first and
+prints ``distributed: {...}``; every rank tracks the sequence, loop
+closing shards its scoring and global BA over the ranks, and only rank 0
+writes the trajectories and the PNGs.  ``main`` returns the shut-down
+system.
 """
 import argparse
 
-from ._common import add_port_arguments, check_arguments, print_stats, track_frames
+from ._common import add_port_arguments, check_arguments, join, print_stats, track_frames
 
 
 def parse_arguments(argv=None):
@@ -57,6 +62,7 @@ def parse_arguments(argv=None):
 
 def main(argv=None):
     args = parse_arguments(argv)
+    writer = join(args)
     from ..config import load_config
     from ..io import TumRgbdDataset
     from ..io.trajectory import ate_against_groundtruth
@@ -74,9 +80,10 @@ def main(argv=None):
         system.precompile()
     track = system.track_rgbd_pipelined if args.pipelined else system.track_rgbd
     track_frames(system, args, n, ds.__getitem__, track, 50, wait=not args.pipelined)
-    system.save_trajectory_tum(args.out_trajectory)
-    system.save_keyframe_trajectory_tum(args.out_kf_trajectory)
-    print(f"trajectories saved: {args.out_trajectory}, {args.out_kf_trajectory}")
+    if writer:
+        system.save_trajectory_tum(args.out_trajectory)
+        system.save_keyframe_trajectory_tum(args.out_kf_trajectory)
+        print(f"trajectories saved: {args.out_trajectory}, {args.out_kf_trajectory}")
     print_stats(system)
     if system.frame_trace is not None:
         print("--- frame trace (i mode ok inl [need] [INS]) ---")
@@ -84,13 +91,13 @@ def main(argv=None):
             flags = ("" if not need else " need") + ("" if not ins else " INS")
             print(f"{i:4d} m{mode} {'ok' if ok else 'LOST':4s} {inl:4d}{flags}")
 
-    if args.viz:
+    if args.viz and writer:
         from ..viz.headless import render_map_topdown
 
         render_map_topdown(system.map, args.viz)
         print(f"map rendering saved: {args.viz}")
 
-    if args.groundtruth:
+    if args.groundtruth and writer:
         err, n_poses = ate_against_groundtruth(args.out_trajectory, args.groundtruth)
         if err is not None:
             print(f"ATE RMSE: {err:.4f} m over {n_poses} poses")

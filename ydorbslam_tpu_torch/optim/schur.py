@@ -20,6 +20,18 @@ A Cholesky factorisation that fails (``info != 0``, the matrix is not
 positive definite) gives a zero camera step, as the NaN factor of
 ``jax.lax.linalg.cholesky`` does through the JAX package's
 ``isfinite`` guard; the input is symmetrised first, as JAX does.
+
+With ``group`` (a ``parallel.multihost.ShardGroup``) the point axis of
+the problem is this rank's block of it (``parallel/ba_sharded.py``): the
+camera reductions (``red``, the cost, ``S_off`` and the reduced rhs's
+point term) are summed over the group's ranks where the JAX package
+calls ``psum``, and every rank solves the same camera system.  With
+``group=None`` nothing is reduced and the dense results are unchanged.
+
+The vmapped-style reference of one damped step (``_per_obs``,
+``_weights``, ``_lm_iteration``, solved by block-Jacobi PCG
+``_pcg_solve_blocks``) and ``ba_cost_and_chi2`` are ported too: the
+point-sharded BA step runs on them, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -29,8 +41,9 @@ import torch
 
 from ..geometry.camera import CameraIntrinsics
 from ..geometry.se3 import se3_exp
+from ..parallel.multihost import all_reduce
 from .lm_kernel import NIN, lm_obs
-from .residuals import huber_cost
+from .residuals import chi2_per_obs, huber_cost, huber_scale, residual_and_jacobians
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -86,6 +99,63 @@ def inv3x3(M: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
+def inv6x6_blocked(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 6x6 inverse by 2x2 block elimination of 3x3
+    blocks, each inverted with ``inv3x3``:
+
+        M = [[A, B], [C, D]],  S = D - C A^-1 B
+        M^-1 = [[A^-1 + A^-1 B S^-1 C A^-1, -A^-1 B S^-1],
+                [-S^-1 C A^-1,               S^-1]]
+    """
+    A = M[..., :3, :3]
+    B = M[..., :3, 3:]
+    Cb = M[..., 3:, :3]
+    D = M[..., 3:, 3:]
+    Ainv = inv3x3(A)
+    AinvB = Ainv @ B
+    Sinv = inv3x3(D - Cb @ AinvB)
+    CAinv = Cb @ Ainv
+    top = torch.cat([Ainv + AinvB @ Sinv @ CAinv, -AinvB @ Sinv], dim=-1)
+    bot = torch.cat([-Sinv @ CAinv, Sinv], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _pcg_solve_blocks(S: torch.Tensor, b: torch.Tensor, iters: int = 128) -> torch.Tensor:
+    """Solve S x = b for block-structured S (C,C,6,6), b (C,6) by
+    block-Jacobi preconditioned conjugate gradients: ``iters`` fixed
+    iterations, the 6x6 diagonal blocks as the preconditioner, each
+    division guarded on the device (no host read)."""
+    C = S.shape[0]
+    ar = torch.arange(C, device=S.device)
+    eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
+    Minv = inv6x6_blocked(S[ar, ar] + 1e-5 * eye6)
+
+    def matvec(x):
+        return torch.einsum("cdij,dj->ci", S, x)
+
+    def precond(r):
+        return torch.einsum("cij,cj->ci", Minv, r)
+
+    def guard(d):
+        return torch.where(torch.abs(d) > 1e-20, d, torch.full_like(d, 1e-20))
+
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(iters):
+        Ap = matvec(p)
+        alpha = rz / guard(torch.sum(p * Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        p = z + rz_new / guard(rz) * p
+        rz = rz_new
+    return x
+
+
 def _cholesky_solve_blocks(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve S x = b for block-structured S (C,C,6,6), b (C,6) by dense
     Cholesky of the symmetrised (6C, 6C) system; a failed factorisation
@@ -98,6 +168,100 @@ def _cholesky_solve_blocks(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, b.reshape(D, 1), upper=False)
     x = torch.linalg.solve_triangular(L.T, y, upper=True)
     return torch.where(info == 0, x, torch.zeros_like(x)).reshape(C, 6)
+
+
+def _sanitize(d: torch.Tensor) -> torch.Tensor:
+    """Zero the rows of a step that are not finite or longer than 1e3
+    (a breakdown of the solve, a near-singular point block): the LM's
+    accept/reject compares costs and cannot veto a NaN."""
+    d = torch.where(torch.isfinite(d), d, 0.0)
+    return torch.where(torch.linalg.norm(d, dim=-1, keepdim=True) < 1e3, d, 0.0)
+
+
+def _camera_step(prob: BAProblem, Hcc, S_off, bs, lam, solve):
+    """The damped reduced camera system S = diag(Hcc + damping) - S_off
+    with the gauge (fixed and invalid cameras) masked to identity rows,
+    solved by ``solve(S, bs)``: returns (dxc (C,6) sanitised, free (C,))."""
+    C = prob.C
+    dev = Hcc.device
+    eye6 = torch.eye(6, device=dev)
+    tr6 = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+    Hcc_d = Hcc + lam * eye6 * torch.clamp(tr6[:, None, None] / 6.0, min=1e-6)
+    ar = torch.arange(C, device=dev)
+    S = -S_off
+    S[ar, ar] = S[ar, ar] + Hcc_d
+    free = prob.cam_valid & ~prob.cam_fixed
+    fmask = free.to(torch.float32)
+    S = S * fmask[:, None, None, None] * fmask[None, :, None, None]
+    S[ar, ar] = S[ar, ar] + (1.0 - fmask)[:, None, None] * eye6
+    return _sanitize(-solve(S, bs * fmask[:, None])), free
+
+
+def _per_obs(cam: CameraIntrinsics, T_all, p_w, prob: BAProblem):
+    """Residuals and Jacobians over the (P, O) observation grid:
+    (r (P,O,3), J_cam (P,O,3,6), J_pt (P,O,3,3), z (P,O))."""
+    camc = torch.clamp(prob.obs_cam.to(torch.int64), 0, prob.C - 1)
+    return residual_and_jacobians(cam, T_all[camc], p_w[:, None, :], prob.obs_uvr)
+
+
+def _weights(prob: BAProblem, z, active):
+    """Per-component weights (P,O,3), masked, and the observation mask."""
+    keep = torch.stack([torch.ones_like(prob.obs_stereo)] * 2 + [prob.obs_stereo], dim=-1)
+    w3 = torch.where(keep, prob.obs_inv_sigma2[..., None], 0.0)
+    mask = active & prob.obs_valid & (prob.obs_cam >= 0) & prob.pt_valid[:, None] & (z > 1e-3)
+    return w3 * mask[..., None].to(torch.float32), mask
+
+
+def ba_cost_and_chi2(cam, T_all, p_w, prob: BAProblem, active, use_huber: bool):
+    """(total robustified or raw cost, chi2 (P,O), mask (P,O))."""
+    r, _, _, z = _per_obs(cam, T_all, p_w, prob)
+    w3, mask = _weights(prob, z, active)
+    chi2 = chi2_per_obs(r, w3)
+    cost = huber_cost(chi2, _delta2(prob.obs_stereo)) if use_huber else chi2
+    return torch.sum(cost * mask.to(torch.float32)), chi2, mask
+
+
+def _lm_iteration(cam, T_all, p_w, prob: BAProblem, active, lam, use_huber: bool, group=None):
+    """One damped step on the (P, O) grid, solved by ``_pcg_solve_blocks``:
+    returns (T_new, p_new).  The camera sums are one-hot incidence
+    products (``E``), the Schur coupling one ``Um @ Vm.T`` product; with
+    ``group`` they are summed over its ranks (``parallel.ba_sharded.
+    sharded_ba_step``)."""
+    C, P, O = prob.C, prob.P, prob.O
+    dev = p_w.device
+    r, Jc, Jp, z = _per_obs(cam, T_all, p_w, prob)
+    w3, mask = _weights(prob, z, active)
+    chi2 = chi2_per_obs(r, w3)
+    if use_huber:
+        w3 = w3 * huber_scale(chi2, _delta2(prob.obs_stereo))[..., None]
+    Hpp = torch.einsum("poci,poc,pocj->pij", Jp, w3, Jp)
+    bp = torch.einsum("poci,poc,poc->pi", Jp, w3, r)
+    tr3 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
+    Hpp_inv = inv3x3(Hpp + lam * torch.eye(3, device=dev)
+                     * torch.clamp(tr3[:, None, None] / 3.0, min=1e-6))
+    Hpp_inv = torch.where(~prob.pt_valid[:, None, None], 0.0, Hpp_inv)
+
+    camc = torch.clamp(prob.obs_cam.to(torch.int64), 0, C - 1)
+    E = ((camc[..., None] == torch.arange(C, device=dev)) & (prob.obs_cam >= 0)[..., None]).to(
+        torch.float32)  # (P,O,C)
+    Hcc = all_reduce(torch.einsum("poc,poij->cij", E,
+                                  torch.einsum("poci,poc,pocj->poij", Jc, w3, Jc)), group)
+    bc = all_reduce(torch.einsum("poc,poi->ci", E,
+                                 torch.einsum("poci,poc,poc->poi", Jc, w3, r)), group)
+    B = torch.einsum("poci,poc,pocj->poij", Jc, w3, Jp)  # (P,O,6,3)
+    U = torch.einsum("poc,poik->pcik", E, B @ Hpp_inv[:, None])  # (P,C,6,3)
+    V = torch.einsum("poc,pojk->pcjk", E, B)
+    Um = U.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
+    Vm = V.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
+    S_off = all_reduce(Um @ Vm.T, group).reshape(C, 6, C, 6).permute(0, 2, 1, 3)
+    bs = bc - all_reduce(torch.einsum("pcik,pk->ci", U, bp), group)
+
+    dxc, free = _camera_step(prob, Hcc, S_off, bs, lam, _pcg_solve_blocks)
+    corr = torch.einsum("poij,poi->pj", B, dxc[camc])
+    dxp = _sanitize(-torch.einsum("pij,pj->pi", Hpp_inv, bp + corr))
+    T_new = torch.where(free[:, None, None], se3_exp(dxc) @ T_all, T_all)
+    p_new = torch.where(prob.pt_valid[:, None], p_w + dxp, p_w)
+    return T_new, p_new
 
 
 def _po_flat(a: torch.Tensor) -> torch.Tensor:
@@ -187,13 +351,14 @@ def _delta2(stereo: torch.Tensor) -> torch.Tensor:
     return torch.where(stereo, CHI2_STEREO * one, CHI2_MONO * one)
 
 
-def _flat_cost(cam, T_all, p_w, f: _FlatObs, active_flat, use_huber: bool):
-    """Total robustified cost (residual-only pass)."""
+def _flat_cost(cam, T_all, p_w, f: _FlatObs, active_flat, use_huber: bool, group=None):
+    """Total robustified cost (residual-only pass), summed over
+    ``group``'s ranks when the points are sharded."""
     pr = _flat_project(cam, T_all, p_w, f)
     wu, wv, wr, mask = _flat_weights(f, pr["zr"], active_flat)
     chi2 = _flat_chi2(pr, wu, wv, wr)
     cost = huber_cost(chi2, _delta2(f.stereo)) if use_huber else chi2
-    return torch.sum(cost * mask.to(torch.float32))
+    return all_reduce(torch.sum(cost * mask.to(torch.float32)), group)
 
 
 class _FlatSystem(NamedTuple):
@@ -209,10 +374,11 @@ class _FlatSystem(NamedTuple):
 
 def _flat_system(
     cam: CameraIntrinsics, T_all, p_w, prob: BAProblem, f: _FlatObs, active_flat,
-    use_huber: bool,
+    use_huber: bool, group=None,
 ) -> _FlatSystem:
     """One observation pass at (T_all, p_w) through K4: camera and point
-    normal equations, coupling columns and robustified cost."""
+    normal equations, coupling columns and robustified cost; ``red`` and
+    the cost summed over ``group``'s ranks when the points are sharded."""
     C, P, O = prob.C, prob.P, prob.O
     Q = O * P
     dev = p_w.device
@@ -234,18 +400,21 @@ def _flat_system(
         0,
     ).reshape(NIN, O, P)
     outq, outp = lm_obs(inp)
-    red = outq[:42].reshape(42, Q) @ f.E  # (42, C)
+    red = all_reduce(outq[:42].reshape(42, Q) @ f.E, group)  # (42, C)
     return _FlatSystem(
         red=red.T,
         Hpp=outp[:9].T.reshape(P, 3, 3),
         bp=outp[9:12].T,
         Bq=outq[42:60].reshape(18, Q),
-        cost=torch.sum(outp[12]),
+        cost=all_reduce(torch.sum(outp[12]), group),
     )
 
 
-def _flat_step(cam, prob: BAProblem, f: _FlatObs, sys: _FlatSystem, T_all, p_w, lam):
-    """Solve one damped step from a cached normal-equation system."""
+def _flat_step(cam, prob: BAProblem, f: _FlatObs, sys: _FlatSystem, T_all, p_w, lam,
+               group=None):
+    """Solve one damped step from a cached normal-equation system; the
+    Schur off-diagonal and the reduced rhs's point term are summed over
+    ``group``'s ranks when the points are sharded."""
     C, P, O = prob.C, prob.P, prob.O
     dev = p_w.device
 
@@ -253,7 +422,6 @@ def _flat_step(cam, prob: BAProblem, f: _FlatObs, sys: _FlatSystem, T_all, p_w, 
         return torch.sum(q.reshape(O, P), dim=0)
 
     eye3 = torch.eye(3, device=dev)
-    eye6 = torch.eye(6, device=dev)
     Hcc = sys.red[:, :36].reshape(C, 6, 6)
     bc = sys.red[:, 36:42]
     bp = sys.bp
@@ -276,32 +444,15 @@ def _flat_step(cam, prob: BAProblem, f: _FlatObs, sys: _FlatSystem, T_all, p_w, 
     V = torch.einsum("opc,opjk->pcjk", E_po, B_stack)
     Um = U.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
     Vm = V.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
-    S_off = (Um @ Vm.T).reshape(C, 6, C, 6).permute(0, 2, 1, 3)
-    corr_cam = torch.einsum("pcik,pk->ci", U, bp)
-    bs = bc - corr_cam
-
-    tr6 = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
-    Hcc_d = Hcc + lam * eye6 * torch.clamp(tr6[:, None, None] / 6.0, min=1e-6)
-    ar = torch.arange(C, device=dev)
-    S = -S_off
-    S[ar, ar] = S[ar, ar] + Hcc_d
-    free = prob.cam_valid & ~prob.cam_fixed
-    fmask = free.to(torch.float32)
-    S = S * fmask[:, None, None, None] * fmask[None, :, None, None]
-    S[ar, ar] = S[ar, ar] + (1.0 - fmask)[:, None, None] * eye6
-    bs = bs * fmask[:, None]
-
-    dxc = -_cholesky_solve_blocks(S, bs)
-    dxc = torch.where(torch.isfinite(dxc), dxc, 0.0)
-    dxc = torch.where(torch.linalg.norm(dxc, dim=-1, keepdim=True) < 1e3, dxc, 0.0)
+    S_off = all_reduce(Um @ Vm.T, group).reshape(C, 6, C, 6).permute(0, 2, 1, 3)
+    corr_cam = all_reduce(torch.einsum("pcik,pk->ci", U, bp), group)
+    dxc, free = _camera_step(prob, Hcc, S_off, bc - corr_cam, lam, _cholesky_solve_blocks)
 
     dg = dxc[f.cam_idx]  # (Q,6)
     corr = torch.stack(
         [osum(sum(Bc[i][k] * dg[:, i] for i in range(6))) for k in range(3)], -1
     )
-    dxp = -torch.einsum("pij,pj->pi", Hpp_inv, bp + corr)
-    dxp = torch.where(torch.isfinite(dxp), dxp, 0.0)
-    dxp = torch.where(torch.linalg.norm(dxp, dim=-1, keepdim=True) < 1e3, dxp, 0.0)
+    dxp = _sanitize(-torch.einsum("pij,pj->pi", Hpp_inv, bp + corr))
 
     T_new = se3_exp(dxc) @ T_all
     T_new = torch.where(free[:, None, None], T_new, T_all)
@@ -316,25 +467,29 @@ def lm_solve(
     use_huber: bool,
     active: torch.Tensor,
     lam0: Union[float, torch.Tensor] = 1e-4,
+    group=None,
 ):
     """Fixed-iteration LM with accept/reject damping: one observation
     pass per iteration (the candidate's system pass carries its cost,
     which is the accept/reject test).  ``lam0`` is the starting damping:
     a float, or a 0-dim tensor that carries the damping of an earlier
-    chunk.  Returns (T, p, cost, lam)."""
+    chunk.  With ``group`` the problem's points are this rank's block
+    and the returned ``p`` is that block; the cost that decides each
+    step is the group's sum, so every rank takes the same branch.
+    Returns (T, p, cost, lam)."""
     dev = prob.p_w.device
     f = _flatten_obs(prob)
     active_flat = _po_flat(active)
 
     def system(T, p):
-        return _flat_system(cam, T, p, prob, f, active_flat, use_huber)
+        return _flat_system(cam, T, p, prob, f, active_flat, use_huber, group)
 
     sysc = system(prob.T_cw, prob.p_w)
     T, p, cost = prob.T_cw, prob.p_w, sysc.cost
     lam = lam0 if isinstance(lam0, torch.Tensor) else torch.full(
         (), lam0, dtype=torch.float32, device=dev)
     for _ in range(iters):
-        T_new, p_new = _flat_step(cam, prob, f, sysc, T, p, lam)
+        T_new, p_new = _flat_step(cam, prob, f, sysc, T, p, lam, group)
         sys_new = system(T_new, p_new)
         accept = sys_new.cost < cost
         T = torch.where(accept, T_new, T)

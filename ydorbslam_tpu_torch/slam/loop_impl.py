@@ -19,6 +19,13 @@ src/loopClosing.cpp with the thread protocol removed:
            advanced one chunk (K4) per keyframe and merged into the live
            map (``_merge_gba``, loopClosing.cpp:377-445).
 
+When the process is one of several ranks (``parallel.multihost``), the
+detection's scoring shards the keyframe axis of the retrieval index and
+the global BA's chunks shard its points over the ranks
+(``parallel/retrieval_sharded.py``, ``parallel/ba_sharded.py``), as the
+JAX package does on more than one device; every other step runs on every
+rank alike, on the same replicated state.
+
 The host reads the device at the JAX package's points only, each through
 ``_fetch``: one packed detection vector per dispatched keyframe, read one
 keyframe late; one packed 22-float verification vector per candidate;
@@ -45,6 +52,9 @@ from ..optim.horn import ransac_sim3
 from ..optim.pose_graph import PoseGraphProblem, optimize_pose_graph
 from ..optim.schur import _lm_chunk
 from ..optim.sim3_opt import optimize_sim3
+from ..parallel import multihost
+from ..parallel.ba_sharded import _sharded_lm_chunk
+from ..parallel.retrieval_sharded import score_all_sharded
 from .map_state import MapState, add_observations_multi, recompute_covis_all, replace_points
 from .mapping import build_local_ba
 from .matchers import match_dense, match_fuse_points, match_local_points
@@ -221,10 +231,17 @@ def _detect_body(m: MapState, retrieval, kf_id: int, prev_masks, prev_counts, q,
 
 
 def _detect(m: MapState, retrieval, kf_id: int, prev_masks, prev_counts, max_out: int,
-            consistency_th: int, n_banks: int = 4, bank_bits: int = 12, min_frame_gap: int = 0):
-    """Query histogram and scores of keyframe ``kf_id``, then ``_detect_body``."""
+            consistency_th: int, n_banks: int = 4, bank_bits: int = 12, min_frame_gap: int = 0,
+            group=None):
+    """Query histogram and scores of keyframe ``kf_id``, then
+    ``_detect_body``.  With ``group`` the scores come from the
+    keyframe-sharded ``score_all_sharded`` (the JAX package's
+    ``make_sharded_detect``), bit-equal to ``score_all``'s."""
     q = bow_histogram(m.kf_desc[kf_id], m.kf_kp_valid[kf_id], n_banks, bank_bits)
-    _, scores = score_all(retrieval, q)
+    if group is None:
+        _, scores = score_all(retrieval, q)
+    else:
+        _, scores = score_all_sharded(group, retrieval, q)
     return _detect_body(m, retrieval, kf_id, prev_masks, prev_counts, q, scores,
                         max_out, consistency_th, min_frame_gap)
 
@@ -406,6 +423,10 @@ class LoopCloserImpl:
         self.generator = torch.Generator("cpu").manual_seed(0)
         self._gba = None  # the global BA in flight (see _start_global_ba)
         self._pending = None  # (kf_id, frame id at dispatch, packed detection)
+        # Keyframe-sharded detection when several ranks run the system.
+        self._kf_group = multihost.device_mesh("kf",
+                                               length_divisor=system.cfg.capacity.max_keyframes)
+        self.used_sharded_detect = False
 
     def process(self, kf_id: int) -> bool:
         """Advance any global BA by one chunk, verify the previous
@@ -442,7 +463,9 @@ class LoopCloserImpl:
             m, sys.retrieval, kf_id, prev_masks, prev_counts, C,
             cfg.loop.covisibility_consistency_th, n_banks=cfg.loop.retrieval_banks,
             bank_bits=cfg.loop.retrieval_bank_bits, min_frame_gap=cfg.loop.min_frame_gap,
+            group=self._kf_group,
         )
+        self.used_sharded_detect |= self._kf_group is not None
         self.closer.consistent_groups = (masks, counts.to(torch.int32))
         packed = torch.cat([ids.to(torch.float32), consistent.to(torch.float32)])
         sys._snapshot()
@@ -645,17 +668,25 @@ class LoopCloserImpl:
             lam=torch.full((), 1e-4, dtype=torch.float32, device=dev),
             done=0, iters=cfg.optim.global_ba_iters, chunk=5,
             valid0=m.kf_valid.clone(), fid0=m.kf_frame_id.clone(), kf_count0=sys.n_keyframes,
+            # Point-sharded chunks when several ranks run the system.
+            group=multihost.device_mesh("pts", length_divisor=prob.P),
         )
 
     def tick(self) -> None:
-        """Advance the global BA in flight by one LM chunk, and merge it
-        when its ``global_ba_iters`` are done."""
+        """Advance the global BA in flight by one LM chunk (point-sharded
+        over the ranks when there are several; the points come back
+        whole), and merge it when its ``global_ba_iters`` are done."""
         g = self._gba
         if g is None:
             return
-        g["T"], g["p"], g["lam"] = _lm_chunk(
-            self.system.cam, g["prob"], g["T"], g["p"], g["lam"], chunk=g["chunk"]
-        )
+        if g["group"] is not None:
+            g["T"], g["p"], g["lam"] = _sharded_lm_chunk(
+                g["group"], self.system.cam, g["prob"], g["T"], g["p"], g["lam"], g["chunk"]
+            )
+        else:
+            g["T"], g["p"], g["lam"] = _lm_chunk(
+                self.system.cam, g["prob"], g["T"], g["p"], g["lam"], chunk=g["chunk"]
+            )
         g["done"] += g["chunk"]
         if g["done"] >= g["iters"]:
             self._finish_gba()

@@ -12,7 +12,12 @@ stereo workload: a rectified pair sequence at the KITTI-00 camera.
 ``write_tum_sequence`` writes RGB-D frames to disk as a TUM sequence
 directory with its settings file (``TUM_RGBD_SETTINGS``), and
 ``write_kitti_sequence`` stereo pairs as a KITTI odometry sequence
-directory at the KITTI-00 camera.
+directory at the KITTI-00 camera.  ``free_port`` finds a local port
+for a one-host process group.  ``sharded_rank_checks`` and
+``sharded_chunk_rank`` are rank bodies for ``parallel.launch.spawn_ranks``
+(the tests' worlds of 2 and 4 CPU ranks; ``chip_smoke.py`` phase 21's
+ranks on the card), and ``assert_replicated`` checks that every rank of a
+group holds the same bits.
 
 At import this module needs only numpy and torch, nothing else of the
 package, so ``tools/time_kernels.py`` can load it by path beside another
@@ -257,6 +262,16 @@ def pose_graph_problem(rng, V, n_offsets, n_extra, n_dup):
     return prob, T_true
 
 
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now (the kernel's
+    pick for a socket bound to port 0), for a one-host process group."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def on_device(dev, arrays):
     """The numpy arrays of a problem as tensors on ``dev``."""
     return tuple(torch.as_tensor(x).to(dev) for x in arrays)
@@ -437,3 +452,162 @@ def write_kitti_sequence(root, frames, poses):
     np.savetxt(path, np.stack([np.linalg.inv(T)[:3, :].reshape(-1) for T in poses]),
                fmt="%.12e")
     return path
+
+
+# ----------------------------------------------------------------------
+# Rank bodies of spawned worlds (``parallel.launch.spawn_ranks``)
+# ----------------------------------------------------------------------
+
+def assert_replicated(g, **tensors) -> None:
+    """Raise unless every rank of ``g`` holds the same bits in each tensor."""
+    import torch.distributed as dist
+
+    for name, t in tensors.items():
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(g.size)]
+        dist.all_gather(parts, t, group=g.group)
+        if not all(torch.equal(parts[0], x) for x in parts[1:]):
+            raise AssertionError(f"{name} differs between the ranks")
+
+
+def sharded_rank_checks(g, device, inp) -> dict:
+    """One rank's run of every sharded piece on ``inp`` (numpy inputs made
+    by the test): the pose step (1 and 5 steps), the BA step, two LM
+    chunks, the bundle adjustment with and without an abort after its
+    first chunk, the sharded top-k and scores, sharded detection, and a
+    ``SlamSystem`` (``inp["cfg"]``) whose closer detects on a map and
+    whose armed global BA ticks to its merge.  Checks that every rank
+    holds the same poses and damping; returns the results."""
+    from .convert import (ba_problem_from_numpy, camera_from_numpy, map_state_from_numpy,
+                          retrieval_index_from_numpy)
+    from .parallel import ba_sharded as bs
+    from .parallel import retrieval_sharded as rs
+    from .slam import loop_impl
+    from .slam.system import Sensor, SlamSystem
+
+    def t(x):
+        return torch.as_tensor(x).to(device)
+
+    cam = camera_from_numpy(inp["cam"], device)
+    out = {}
+    T0, pts, obs, s2, valid = (t(inp["pose"][k]) for k in ("T", "pts", "obs", "s2", "valid"))
+    out["pose1"] = T = bs.sharded_pose_step(g, cam, T0, pts, obs, s2, valid)
+    for _ in range(4):
+        T = bs.sharded_pose_step(g, cam, T, pts, obs, s2, valid)
+    out["pose5"] = T
+    prob = ba_problem_from_numpy(inp["ba"], device)
+    out["step_T"], out["step_p"] = bs.sharded_ba_step(g, cam, prob, 1e-4)
+    T, p, lam = prob.T_cw, prob.p_w, torch.full((), 1e-4, device=device)
+    for i in range(2):
+        T, p, lam = bs._sharded_lm_chunk(g, cam, prob, T, p, lam, 5, True)
+        out.update({f"chunk{i}_T": T, f"chunk{i}_p": p, f"chunk{i}_lam": lam})
+    orig_chunk = bs._sharded_lm_chunk
+    for name, abort in (("ba", None), ("ba_abort", lambda: True)):
+        chunks = []
+
+        def counted(*args):
+            chunks.append(1)
+            return orig_chunk(*args)
+
+        bs._sharded_lm_chunk = counted
+        try:
+            out[f"{name}_T"], out[f"{name}_p"], out[f"{name}_out"] = bs.sharded_bundle_adjust(
+                g, cam, prob, 10, 5, should_abort=abort)
+        finally:
+            bs._sharded_lm_chunk = orig_chunk
+        out[f"{name}_chunks"] = len(chunks)
+    idx = retrieval_index_from_numpy(inp["idx"], device)
+    out["topk_ids"], out["topk_scores"] = rs.sharded_topk_scores(g, idx, t(inp["q"]), k=4)
+    out["all_common"], out["all_scores"] = rs.score_all_sharded(g, idx, t(inp["q"]))
+    kg = g._replace(axis_name="kf")
+    for name, d in inp["detect"].items():
+        m = map_state_from_numpy(d["map"], device)
+        C = d["C"]
+        res = loop_impl._detect(
+            m, retrieval_index_from_numpy(d["idx"], device), d["kf"],
+            torch.zeros((C, m.K), dtype=torch.bool, device=device),
+            torch.full((C,), -1, dtype=torch.int32, device=device), C, d["th"],
+            min_frame_gap=d["gap"], group=kg)
+        out.update({f"detect_{name}_{i}": x for i, x in enumerate(res)})
+
+    chunked = sharded_chunk_rank(g, device, dict(cam=inp["cam"], prob=inp["ba"], lam=1e-4,
+                                                 chunks=2, rtol=0.0, atol=0.0))
+    out.update({f"chunkrank_{k}": v for k, v in chunked.items() if k != "ms"})
+
+    system = SlamSystem(inp["cfg"], Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
+                        device=device)
+    sysd = inp["system"]
+    system.map = map_state_from_numpy(sysd["map"], device)
+    system.retrieval = retrieval_index_from_numpy(sysd["idx"], device)
+    system.n_keyframes = int(sysd["map"]["kf_valid"].sum())
+    impl = system.loop_closer._impl
+    impl._dispatch_detect(sysd["kf"])
+    out["sys_packed"] = impl._pending[2]
+    impl._pending = None
+    impl._start_global_ba(system.map, int(sysd["map"]["mp_valid"].sum()))
+    out["sys_sharded"] = [impl._kf_group is not None, impl._gba["group"] is not None,
+                          impl.used_sharded_detect]
+    while impl._gba is not None:
+        impl.tick()
+    out["sys_kf_pose"], out["sys_mp_pos"] = system.map.kf_pose, system.map.mp_pos
+    assert_replicated(g, **{k: v for k, v in out.items() if k.endswith(("_T", "_lam", "pose1",
+                                                                         "pose5", "kf_pose"))})
+    return out
+
+
+def sharded_chunk_rank(g, device, inp) -> dict:
+    """One rank's point-sharded LM on the global BA in ``inp`` (numpy; a
+    problem captured from the loop closer, started at its T, p and
+    ``lam``): one LM iteration (``step_T``, ``step_p``), then
+    ``inp["chunks"]`` chunks of 5, each timed to its end on the device.
+    Returns the results, the rank's K4 launches per chunk and, on a card,
+    its first K4 input held against the plain version (``max_abs_err``,
+    within ``inp["rtol"]``, ``inp["atol"]``).  Checks that every rank
+    holds the same T and damping."""
+    from .convert import ba_problem_from_numpy, camera_from_numpy
+    from .ops import kernels
+    from .optim import lm_kernel, schur
+    from .parallel.ba_sharded import _sharded_lm_chunk
+
+    cam = camera_from_numpy(inp["cam"], device)
+    prob = ba_problem_from_numpy(inp["prob"], device)
+    T, p = prob.T_cw, prob.p_w
+    lam = torch.as_tensor(inp["lam"], dtype=torch.float32).to(device)
+    cuda = torch.device(device).type == "cuda"
+    seen = []
+    orig = schur.lm_obs
+
+    def keep(x):
+        if not seen:
+            seen.append(x.clone())
+        return orig(x)
+
+    out = {"launches": [], "ms": []}
+    schur.lm_obs = keep
+    try:
+        out["step_T"], out["step_p"], _ = _sharded_lm_chunk(g, cam, prob, T, p, lam, 1, True)
+        for i in range(inp["chunks"]):
+            if cuda:
+                torch.cuda.synchronize()
+            before = kernels.launch_counts()["lm_obs"]
+            t0 = time.perf_counter()
+            T, p, lam = _sharded_lm_chunk(g, cam, prob, T, p, lam, 5, True)
+            if cuda:
+                torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(kernels.launch_counts()["lm_obs"] - before)
+    finally:
+        schur.lm_obs = orig
+    out.update(T=T, p=p, lam=lam, k4_shape=list(seen[0].shape), max_abs_err=None)
+    if cuda:
+        kq, kp = kernels.lm_obs_cuda(seen[0])
+        pq, pp = lm_kernel.lm_obs_plain(seen[0])
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in ((kq, pq), (kp, pp)):
+            if ((a - b).abs() > inp["atol"] + inp["rtol"] * b.abs()).any():
+                raise AssertionError(f"rank {g.rank}: K4 differs from plain on its shard")
+            err = max(err, float((a - b).abs().max()))
+        out["max_abs_err"] = err
+    assert_replicated(g, T=T, lam=lam, p=p, step_T=out["step_T"])
+    return out
