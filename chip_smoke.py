@@ -198,7 +198,7 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      lost frames and insertions, track-time camera centres within 1e-3 m.
      It prints frames/s as bench.py computes it (the dispatches of frames
      20-119 plus the final flush), the median dispatch and drain ms, each
-     deferred BA's synchronised ms, the ``perf`` terms per frame and the
+     deferred BA's synchronised ms, the drains' ``drain.*`` spans per frame and the
      precompile seconds.
  18. the TUM runner with ``--pipelined`` (lag 16) on phase 15's directory
      at ``load_config``'s capacities with loop closing on, the launch
@@ -233,7 +233,7 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      images' last levels and K2 on its last inputs identical to plain.  It
      prints frames/s over the dispatches of frames 10-59 and the final
      shutdown, the median dispatch and drain ms, each deferred BA's
-     synchronised ms, the ``perf`` terms and the precompile seconds.
+     synchronised ms, the ``drain.*`` spans and the precompile seconds.
  20. the KITTI runner with ``--pipelined --lag 16 --poses`` in this process
      on ``testing.write_kitti_sequence`` of the same 60 pairs, at its own
      configuration (``SlamConfig()`` with ``calib.txt``'s camera, 1000
@@ -2001,24 +2001,40 @@ def _replay_drain(calls, cpu):
     return rows, prep_ok, ba, time.perf_counter() - t0
 
 
+def _drain_ms(spans, n_frames):
+    """The drains' parts (the ``drain.*`` spans of a ``trace`` recording):
+    total ms per frame by name."""
+    from ydorbslam_tpu_torch.trace import durations
+
+    return {k: sum(v) / 1e6 / n_frames for k, v in durations(spans).items()
+            if k.startswith("drain.")}
+
+
 def _bench_run(system, frames, n_warm=N_WARM):
     """bench.run's call sequence: ``n_warm`` frames, ``flush_pipeline``,
-    ``perf`` cleared, the other frames each timed to the end of its
-    dispatch, then ``shutdown`` timed.  Returns (dispatch seconds of the
-    timed frames, whether each drained, shutdown seconds)."""
+    then, recorded by ``trace``, the other frames each timed to the end of
+    its dispatch and ``shutdown`` timed.  Returns (dispatch seconds of the
+    timed frames, whether each drained, shutdown seconds, the recording's
+    spans)."""
+    from ydorbslam_tpu_torch import trace
+
     for f in frames[:n_warm]:
         system.track_rgbd_pipelined(*f)
     system.flush_pipeline()
-    system.perf.clear()
     secs, drained = [], []
-    for f in frames[n_warm:]:
+    trace.enable()
+    try:
+        for f in frames[n_warm:]:
+            t0 = time.perf_counter()
+            system.track_rgbd_pipelined(*f)
+            secs.append(time.perf_counter() - t0)
+            drained.append(not system._pending)
         t0 = time.perf_counter()
-        system.track_rgbd_pipelined(*f)
-        secs.append(time.perf_counter() - t0)
-        drained.append(not system._pending)
-    t0 = time.perf_counter()
-    system.shutdown()
-    return secs, drained, time.perf_counter() - t0
+        system.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    finally:
+        spans, _ = trace.take()
+    return secs, drained, shutdown_s, spans
 
 
 def _phase17(smi, report):
@@ -2059,8 +2075,8 @@ def _phase17(smi, report):
         t0 = time.perf_counter()
         system.precompile()
         pre_s = time.perf_counter() - t0
-        (secs, drained, flush_s), launches, infos, calls = run(system, frames)
-        perf = {k: v / len(secs) * 1e3 for k, v in system.perf.items()}
+        (secs, drained, flush_s, spans), launches, infos, calls = run(system, frames)
+        perf = _drain_ms(spans, len(secs))
         stats = system.run_stats()
         trace = [t[1:] for t in system.frame_trace]
         last_tracked = not system.records[-1].lost
@@ -2125,7 +2141,7 @@ def _phase17(smi, report):
           f"dispatch {float(np.median(disp)) * 1e3:.3f} ms ({len(disp)} not draining), median "
           f"drain {float(np.median(drains)) * 1e3 if drains else float('nan'):.3f} ms "
           f"({len(drains)} drains), deferred BA {[round(v, 3) for v in ba_ms]} ms "
-          f"(synchronised), perf per frame ms "
+          f"(synchronised), drain spans per frame ms "
           f"{({k: round(v, 3) for k, v in sorted(perf.items())})}, precompile {pre_s:.2f} s "
           f"| {smi}", flush=True)
     print(f"phase 17 frame trace of the run: lost {[i for i, t in enumerate(trace) if not t[1]]} "
@@ -2325,6 +2341,7 @@ def _phase19(smi, report):
     import numpy as np
     import torch
 
+    from ydorbslam_tpu_torch import trace as recorder
     from ydorbslam_tpu_torch import config as pconfig
     from ydorbslam_tpu_torch.config import camera_intrinsics
     from ydorbslam_tpu_torch.io import ate_rmse, read_tum_trajectory
@@ -2370,17 +2387,23 @@ def _phase19(smi, report):
 
     def run(system, frames, count=False, capture=False):
         """The frames through ``track_stereo_pipelined``, each timed to the
-        end of its dispatch, then ``shutdown`` timed."""
+        end of its dispatch, then ``shutdown`` timed, all recorded by
+        ``ydorbslam_tpu_torch.trace``."""
         probe.reset(count=count, capture=capture)
         secs, drained = [], []
-        for f in frames:
+        recorder.enable()
+        try:
+            for f in frames:
+                t0 = time.perf_counter()
+                system.track_stereo_pipelined(*f)
+                secs.append(time.perf_counter() - t0)
+                drained.append(not system._pending)
             t0 = time.perf_counter()
-            system.track_stereo_pipelined(*f)
-            secs.append(time.perf_counter() - t0)
-            drained.append(not system._pending)
-        t0 = time.perf_counter()
-        system.shutdown()
-        return (secs, drained, time.perf_counter() - t0), kernels.launch_counts()
+            system.shutdown()
+            shut_s = time.perf_counter() - t0
+        finally:
+            spans, _ = recorder.take()
+        return (secs, drained, shut_s, spans), kernels.launch_counts()
 
     patches = [(extractor, "fast_score_nms_levels", keep_k1), (matchers, "proj_best2", keep_k2),
                (pipeline_mod, "stereo_match", match)]
@@ -2395,9 +2418,9 @@ def _phase19(smi, report):
             system.precompile()
             pre_s = time.perf_counter() - t0
             kept["arm"] = True
-            (secs, drained, shut_s), launches = run(system, frames, capture=True)
+            (secs, drained, shut_s, spans), launches = run(system, frames, capture=True)
             infos, calls = list(probe.infos), dict(probe.calls)
-            perf = {k: v / len(secs) * 1e3 for k, v in system.perf.items()}
+            perf = _drain_ms(spans, len(secs))
             stats = system.run_stats()
             trace = [t[1:] for t in system.frame_trace]
             with tempfile.TemporaryDirectory() as tmp:
@@ -2516,7 +2539,8 @@ def _phase19(smi, report):
           f"({len(disp)} not draining), median drain "
           f"{float(np.median(drains)) * 1e3 if drains else float('nan'):.3f} ms ({len(drains)} "
           f"drains; the capture's host copies are in the drain of frames {burst_frames}), "
-          f"deferred BA {[round(v, 3) for v in ba_ms]} ms (synchronised), perf per frame ms "
+          f"deferred BA {[round(v, 3) for v in ba_ms]} ms (synchronised), drain spans per "
+          f"frame ms "
           f"{({k: round(v, 3) for k, v in sorted(perf.items())})}, precompile {pre_s:.2f} s "
           f"| {smi}", flush=True)
     print(f"phase 19 frame trace: lost {[i for i, t in enumerate(trace) if not t[1]]} "

@@ -3,7 +3,7 @@
     python -m ydorbslam_tpu_torch.apps.run_kitti_stereo SEQUENCE_DIR
         [--config CFG.yaml] [--poses POSES.txt] [--max-frames N]
         [--no-loop] [--pipelined [--lag N]] [--out-trajectory PATH]
-        [--viewer-dir DIR] [--viewer-every N] [--device cuda|cpu]
+        [--viewer-dir DIR] [--viewer-every N] [--device cuda|cpu] [--trace-spans]
 
 The counterpart of ``apps/run_kitti_stereo.py``: it reads a KITTI
 sequence directory (``image_0``/``image_1`` PNGs, ``times.txt``,
@@ -15,7 +15,9 @@ pipelined path instead: it calls ``enable_pipelined(lag)`` (``--lag``,
 default 16; without ``--pipelined`` it is accepted and unused, as in the
 JAX runner) and ``precompile()``, dispatches every pair with
 ``track_stereo_pipelined`` and times each dispatch.  ``--viewer-dir``
-writes a frame and a map PNG every ``--viewer-every`` frames.  It runs on
+writes a frame and a map PNG every ``--viewer-every`` frames.
+``--trace-spans`` records the program's spans (``trace``) over the frames
+and prints them by name after the run stats.  It runs on
 the card (``--device cuda``, the default) and fails when there is none;
 ``--device cpu`` runs the plain versions of the kernels.  In a
 multi-process environment (``YDORBSLAM_COORDINATOR`` /
@@ -78,11 +80,11 @@ def main(argv=None):
         system.enable_pipelined(lag=args.lag)
         system.precompile()
     track = system.track_stereo_pipelined if args.pipelined else system.track_stereo
-    track_frames(system, args, n, ds.__getitem__, track, 100, inliers=False,
+    recorded = track_frames(system, args, n, ds.__getitem__, track, 100, inliers=False,
                  wait=not args.pipelined)
     if writer:
         system.save_trajectory_tum(args.out_trajectory)
-    print_stats(system)
+    print_stats(system, recorded)
 
     if args.poses and writer:
         ate, _ = ate_against_kitti_poses(args.out_trajectory, args.poses, len(ds))

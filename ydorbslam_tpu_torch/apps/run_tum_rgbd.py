@@ -5,7 +5,7 @@ reference's test program (test/src/test.cpp).
         [--groundtruth GT.txt] [--no-loop] [--no-mapping] [--max-frames N]
         [--out-trajectory PATH] [--out-kf-trajectory PATH] [--viz MAP.png]
         [--viewer-dir DIR] [--viewer-every N] [--device cuda|cpu]
-        [--pipelined [--lag N]]
+        [--pipelined [--lag N]] [--trace-spans]
 
 The counterpart of ``apps/run_tum_rgbd.py``, with its arguments and
 output: it parses the association file, builds the system from the
@@ -17,6 +17,8 @@ CameraTrajectory.txt and KeyFrameTrajectory.txt (test.cpp:109-110) and
 prints the run stats, a top-down map PNG (``--viz``) and, given a
 groundtruth.txt, the ATE of the written trajectory.  ``--viewer-dir``
 writes a frame and a map PNG every ``--viewer-every`` frames.
+``--trace-spans`` records the program's spans (``trace``) over the frames
+and prints them by name after the run stats.
 ``--pipelined`` tracks through the pipelined path instead: it calls
 ``enable_pipelined(lag)`` (``--lag``, default 16) and ``precompile()``,
 dispatches every frame with ``track_rgbd_pipelined`` and times each
@@ -79,12 +81,12 @@ def main(argv=None):
         system.enable_pipelined(lag=args.lag)
         system.precompile()
     track = system.track_rgbd_pipelined if args.pipelined else system.track_rgbd
-    track_frames(system, args, n, ds.__getitem__, track, 50, wait=not args.pipelined)
+    recorded = track_frames(system, args, n, ds.__getitem__, track, 50, wait=not args.pipelined)
     if writer:
         system.save_trajectory_tum(args.out_trajectory)
         system.save_keyframe_trajectory_tum(args.out_kf_trajectory)
         print(f"trajectories saved: {args.out_trajectory}, {args.out_kf_trajectory}")
-    print_stats(system)
+    print_stats(system, recorded)
     if system.frame_trace is not None:
         print("--- frame trace (i mode ok inl [need] [INS]) ---")
         for i, (_ts, mode, ok, inl, need, ins) in enumerate(system.frame_trace):

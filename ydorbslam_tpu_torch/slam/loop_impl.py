@@ -42,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..geometry.se3 import inv_T
 from ..geometry.sim3 import sim3_to_se3
 from ..ops.extractor import FrameFeatures
@@ -67,7 +68,8 @@ def _fetch(x: torch.Tensor) -> np.ndarray:
     """The device->host read of loop closing: every host read of the
     detect/verify/correct path goes through here, one packed tensor at a
     time, so a test can count them."""
-    return x.cpu().numpy()
+    with trace.wait("loop_fetch"):
+        return x.cpu().numpy()
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:

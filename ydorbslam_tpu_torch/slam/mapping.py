@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from .. import trace
 from ..geometry.camera import CameraIntrinsics
 from ..geometry.se3 import inv_T
 from ..ops.scatter import scatter_max, scatter_set
@@ -334,32 +335,42 @@ def mapping_prep(
     without the BA/cull tail).  As in the JAX package, the covisibility is
     not refreshed after fusion.  The pipelined path runs it for every
     keyframe of a drain."""
-    dev = m.device
-    m = cull_map_points(m, kf_count, found_ratio=cull_found_ratio, min_obs=cull_min_obs)
-    w = m.covis[kf_id] * m.kf_valid.to(torch.int32)
-    nvals, nids = stable_topk(w, min(n_neighbors, m.K))
-    nok = nvals > 0
-    m = triangulate_neighbors_batch(
-        m, kf_id, nids, nok, kf_count, cam, scale_factor, n_levels, ratio=tri_ratio,
-    )
-    m = refresh_points(
-        m, torch.where(m.kf_mp[kf_id] >= 0, m.kf_mp[kf_id], -1), scale_factor, n_levels
-    )
-    K = m.K
-    first_mask = scatter_set(
-        torch.zeros((K,), dtype=torch.bool, device=dev), torch.where(nok, nids, K), True
-    )
-    w2 = torch.amax(
-        torch.where(nok[:, None], m.covis[torch.clamp(nids, 0, K - 1)], 0), dim=0
-    )
-    w2 = torch.where(first_mask | (torch.arange(K, device=dev) == kf_id) | ~m.kf_valid, 0, w2)
-    n2vals, n2ids = stable_topk(w2, min(n_neighbors, K))
-    fuse_ids = torch.cat([nids, n2ids])
-    fuse_ok = torch.cat([nok, n2vals > 0])
-    m = fuse_neighbors_batch(m, kf_id, fuse_ids, fuse_ok, cam, scale_factor, n_levels)
-    return refresh_points(
-        m, torch.where(m.kf_mp[kf_id] >= 0, m.kf_mp[kf_id], -1), scale_factor, n_levels
-    )
+    with trace.span("mapping.prep"):
+        dev = m.device
+        with trace.span("mapping.cull_points"):
+            m = cull_map_points(m, kf_count, found_ratio=cull_found_ratio, min_obs=cull_min_obs)
+        with trace.span("mapping.triangulate"):
+            w = m.covis[kf_id] * m.kf_valid.to(torch.int32)
+            nvals, nids = stable_topk(w, min(n_neighbors, m.K))
+            nok = nvals > 0
+            m = triangulate_neighbors_batch(
+                m, kf_id, nids, nok, kf_count, cam, scale_factor, n_levels, ratio=tri_ratio,
+            )
+        m = _refresh_own_points(m, kf_id, scale_factor, n_levels)
+        with trace.span("mapping.fuse"):
+            K = m.K
+            first_mask = scatter_set(
+                torch.zeros((K,), dtype=torch.bool, device=dev), torch.where(nok, nids, K), True
+            )
+            w2 = torch.amax(
+                torch.where(nok[:, None], m.covis[torch.clamp(nids, 0, K - 1)], 0), dim=0
+            )
+            w2 = torch.where(
+                first_mask | (torch.arange(K, device=dev) == kf_id) | ~m.kf_valid, 0, w2
+            )
+            n2vals, n2ids = stable_topk(w2, min(n_neighbors, K))
+            fuse_ids = torch.cat([nids, n2ids])
+            fuse_ok = torch.cat([nok, n2vals > 0])
+            m = fuse_neighbors_batch(m, kf_id, fuse_ids, fuse_ok, cam, scale_factor, n_levels)
+        return _refresh_own_points(m, kf_id, scale_factor, n_levels)
+
+
+def _refresh_own_points(m: MapState, kf_id: int, scale_factor: float, n_levels: int):
+    """``refresh_points`` on the points the keyframe ``kf_id`` observes."""
+    with trace.span("mapping.refresh"):
+        return refresh_points(
+            m, torch.where(m.kf_mp[kf_id] >= 0, m.kf_mp[kf_id], -1), scale_factor, n_levels
+        )
 
 
 def mapping_finish(
@@ -374,21 +385,29 @@ def mapping_finish(
     its newest keyframe: a queued keyframe stops the reference's running
     local BA (``interruptBA``, localMapping.cpp:54-58), so only the last
     keyframe of a burst gets one.  Returns (map, snapshot)."""
-    win, fixed, pts = select_local_window(m, kf_id, win_cap, fix_cap, pts_cap)
-    prob, obs_sel = build_local_ba(m, win, fixed, pts, inv_sigma2_tab, obs_cap=obs_cap)
-    T_new, p_new, outlier = bundle_adjust(cam, prob, iters1=iters1, iters2=iters2)
-    m = apply_local_ba(m, win, pts, T_new[:win_cap], p_new, outlier, obs_sel)
+    with trace.span("mapping.ba"):
+        with trace.span("mapping.ba_build"):
+            win, fixed, pts = select_local_window(m, kf_id, win_cap, fix_cap, pts_cap)
+            prob, obs_sel = build_local_ba(m, win, fixed, pts, inv_sigma2_tab, obs_cap=obs_cap)
+        with trace.span("mapping.ba_solve"):
+            T_new, p_new, outlier = bundle_adjust(cam, prob, iters1=iters1, iters2=iters2)
+        with trace.span("mapping.ba_apply"):
+            m = apply_local_ba(m, win, pts, T_new[:win_cap], p_new, outlier, obs_sel)
+    with trace.span("mapping.cull_kf"):
+        valid_before = m.kf_valid
+        m = cull_keyframes(m, kf_id, depth_threshold, redundancy=kf_cull_redundancy)
+        return m, _pack_snapshot(m, kf_id, valid_before)
 
-    valid_before = m.kf_valid
-    m = cull_keyframes(m, kf_id, depth_threshold, redundancy=kf_cull_redundancy)
 
+def _pack_snapshot(m: MapState, kf_id: int, valid_before: torch.Tensor) -> torch.Tensor:
+    """The packed snapshot (``snapshot_layout``) after keyframe culling."""
     culled = valid_before & ~m.kf_valid
     kcap = min(SNAP_CULL_CAP, m.K)
     cvals, cids = stable_topk(culled.to(torch.int32), kcap)
     cids = _pad(torch.where(cvals > 0, cids, -1), SNAP_CULL_CAP)
     cidc = torch.clamp(cids, 0, m.K - 1)
     f = torch.float32
-    snap = torch.cat([
+    return torch.cat([
         m.kf_valid.to(f),
         valid_before.to(f),
         m.parent.to(f),
@@ -398,7 +417,6 @@ def mapping_finish(
         m.kf_T_c2p[cidc].reshape(-1),
         m.parent[cidc].to(f),
     ])
-    return m, snap
 
 
 def mapping_step(

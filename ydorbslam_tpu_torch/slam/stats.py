@@ -5,11 +5,15 @@ counter bag.  Every increment happens at a host decision point that
 already exists, so it adds no device traffic.  ``SlamSystem.run_stats()``
 merges these counters with values derived from the frame records and one
 read of the map's validity masks; ``format_stats`` prints them for the
-runners.
+runners, and ``format_spans`` a recording of the program's spans
+(``trace.take()``).
 """
 from __future__ import annotations
 
 import dataclasses
+import statistics
+
+from ..trace import durations
 
 
 @dataclasses.dataclass
@@ -75,4 +79,16 @@ def format_stats(d: dict) -> str:
         lines.append(f"  loop: frame {q} -> frame {m}  |t| = {t:.3f} m{edges}")
     if d.get("loop_verify_fails"):
         lines.append(f"  loop verify fails: {d['loop_verify_fails']}")
+    return "\n".join(lines)
+
+
+def format_spans(spans, counts) -> str:
+    """One table of a ``trace.take()`` recording for the runners: per span
+    name its count, total ms and median ms; then the counters.  The
+    ``wait.<site>`` rows count the host's waits by site."""
+    lines = [f"{'span':28s} {'count':>7s} {'total ms':>11s} {'p50 ms':>9s}"]
+    for name, ds in sorted(durations(spans).items()):
+        lines.append(f"{name:28s} {len(ds):7d} {sum(ds) / 1e6:11.3f} "
+                     f"{statistics.median(ds) / 1e6:9.3f}")
+    lines += [f"count {name:22s} {n:7d}" for name, n in sorted(counts.items())]
     return "\n".join(lines)

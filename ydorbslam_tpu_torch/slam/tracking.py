@@ -30,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SlamConfig, camera_intrinsics
 from ..geometry.camera import backproject
 from ..ops.extractor import FrameFeatures, _extract_orb_pyramid, extract_orb
@@ -135,20 +136,26 @@ class Tracker:
         )
 
     def _image(self, gray: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(gray)).to(self.device)
+        # From pageable memory: the copy makes the host wait.
+        with trace.wait("upload_image"):
+            return torch.as_tensor(np.asarray(gray)).to(self.device)
 
     def _extract(self, gray: np.ndarray) -> FrameFeatures:
-        return extract_orb(self._image(gray), self.cam, **self._extract_kw())
+        with trace.span("track.extract"):
+            return extract_orb(self._image(gray), self.cam, **self._extract_kw())
 
     def track_rgbd(self, timestamp: float, gray: np.ndarray, depth: np.ndarray):
         """System::trackRGBD -> Tracking::grabImageRGBD: uint8 gray and a
         depth map (uint16 TUM encoding, or float32 metres)."""
         feats = self._extract(gray)
-        depth = np.asarray(depth)
-        d = torch.as_tensor(depth).to(self.device).to(torch.float32)
-        if depth.dtype == np.uint16:  # sensor-native TUM encoding
-            d = d / self.depth_factor
-        feats = fill_depth_from_rgbd(feats, d, self.cam)
+        with trace.span("track.depth"):
+            depth = np.asarray(depth)
+            with trace.wait("upload_depth"):
+                d = torch.as_tensor(depth).to(self.device)
+            d = d.to(torch.float32)
+            if depth.dtype == np.uint16:  # sensor-native TUM encoding
+                d = d / self.depth_factor
+            feats = fill_depth_from_rgbd(feats, d, self.cam)
         return self._track(timestamp, feats)
 
     def track_stereo(self, timestamp: float, gray_l: np.ndarray, gray_r: np.ndarray):
@@ -156,16 +163,20 @@ class Tracker:
         after the other (K1 twice), then ``stereo_match`` on the
         pyramids the extraction built (src/frame.cpp:60-105)."""
         kw = self._extract_kw()
-        fl, pl = _extract_orb_pyramid(self._image(gray_l), self.cam, **kw)
-        fr, pr = _extract_orb_pyramid(self._image(gray_r), self.cam, **kw)
-        fl = stereo_match(fl, fr, pl, pr, self.cam, kw["n_levels"], kw["scale_factor"])
+        with trace.span("track.extract"):
+            fl, pl = _extract_orb_pyramid(self._image(gray_l), self.cam, **kw)
+        with trace.span("track.extract"):
+            fr, pr = _extract_orb_pyramid(self._image(gray_r), self.cam, **kw)
+        with trace.span("track.stereo"):
+            fl = stereo_match(fl, fr, pl, pr, self.cam, kw["n_levels"], kw["scale_factor"])
         return self._track(timestamp, fl)
 
     # -- core ----------------------------------------------------------
     def _initialize(self, timestamp: float, feats: FrameFeatures) -> bool:
         """Depth map init: needs enough keypoints with depth
         (config tracking.min_init_depth_points)."""
-        n_depth = int(torch.sum(feats.valid & (feats.depth > 0)))
+        with trace.wait("init_depth_points"):
+            n_depth = int(torch.sum(feats.valid & (feats.depth > 0)))
         if n_depth < self.cfg.tracking.min_init_depth_points:
             return False
         self.T_cw = torch.eye(4, device=self.device)
@@ -197,7 +208,8 @@ class Tracker:
             self.frames_since_reloc += 1
             if self.state == TrackingState.LOST and self.reloc_hook is not None:
                 # LOST -> relocalization only (tracking.cpp:257-259).
-                ok = self.reloc_hook(self, timestamp, feats)
+                with trace.span("track.reloc"):
+                    ok = self.reloc_hook(self, timestamp, feats)
                 if ok:
                     self.frames_since_reloc = 0
             else:
@@ -221,32 +233,38 @@ class Tracker:
                 self.state = TrackingState.LOST
                 lost = True
 
-        self.records.append(
-            FrameRecord(timestamp=timestamp, T_cw=self.T_cw.cpu().numpy(), lost=lost)
-        )
+        with trace.wait("record_pose"):
+            T_cw = self.T_cw.cpu().numpy()
+        self.records.append(FrameRecord(timestamp=timestamp, T_cw=T_cw, lost=lost))
         return not lost
 
     def _optimize_with_assign(self, feats, assign, T_init):
-        po = _pose_obs_from_assign(
-            assign, feats, self.last_lms, self.last_lms_valid, self.inv_sigma2_tab
-        )
-        T, _, n_in = optimize_pose(
-            self.cam, T_init, po,
-            episodes=self.cfg.optim.pose_episodes,
-            iters_per_episode=self.cfg.optim.pose_iters_per_episode,
-        )
-        return T, int(n_in)
+        """The frame's pose solve against the last frame's landmarks
+        (the motion model's, or the fallback's)."""
+        with trace.span("track.pose_motion"):
+            po = _pose_obs_from_assign(
+                assign, feats, self.last_lms, self.last_lms_valid, self.inv_sigma2_tab
+            )
+            T, _, n_in = optimize_pose(
+                self.cam, T_init, po,
+                episodes=self.cfg.optim.pose_episodes,
+                iters_per_episode=self.cfg.optim.pose_iters_per_episode,
+            )
+            with trace.wait("pose_inliers"):
+                return T, int(n_in)
 
     def _track_motion(self, feats, T_pred) -> bool:
         o = self.cfg.orb
-        assigns = match_motion_model_two(
-            self.cam, feats, self.last_feats, self.last_lms,
-            self.last_lms_valid, T_pred, self.T_cw,
-            th_narrow=7.0, th_wide=14.0,
-            n_levels=o.n_levels, scale_factor=o.scale_factor,
-        )
+        with trace.span("track.motion"):
+            assigns = match_motion_model_two(
+                self.cam, feats, self.last_feats, self.last_lms,
+                self.last_lms_valid, T_pred, self.T_cw,
+                th_narrow=7.0, th_wide=14.0,
+                n_levels=o.n_levels, scale_factor=o.scale_factor,
+            )
         for assign in assigns:  # widened retry (tracking.cpp:456-461)
-            n_matches = int(torch.sum(assign >= 0))
+            with trace.wait("motion_matches"):
+                n_matches = int(torch.sum(assign >= 0))
             if n_matches >= 20:
                 T, n_in = self._optimize_with_assign(feats, assign, T_pred)
                 if n_in >= self.cfg.tracking.min_matches_motion:
@@ -259,13 +277,16 @@ class Tracker:
         """Fallback: appearance-only dense match vs the last frame + LM
         from the LAST pose (the reference's trackReferenceKeyFrame
         analogue)."""
-        assign, _ = match_dense(
-            self.last_feats.desc, self.last_feats.valid & self.last_lms_valid,
-            self.last_feats.angle,
-            feats.desc, feats.valid, feats.angle,
-            max_dist=self.cfg.matcher.th_low, ratio=self.cfg.matcher.ratio_ref_kf,
-        )
-        if int(torch.sum(assign >= 0)) < 15:
+        with trace.span("track.appearance"):
+            assign, _ = match_dense(
+                self.last_feats.desc, self.last_feats.valid & self.last_lms_valid,
+                self.last_feats.angle,
+                feats.desc, feats.valid, feats.angle,
+                max_dist=self.cfg.matcher.th_low, ratio=self.cfg.matcher.ratio_ref_kf,
+            )
+            with trace.wait("appearance_matches"):
+                n_matches = int(torch.sum(assign >= 0))
+        if n_matches < 15:
             return False
         T, n_in = self._optimize_with_assign(feats, assign, self.T_cw)
         if n_in >= self.cfg.tracking.min_matches_motion:
