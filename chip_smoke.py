@@ -55,7 +55,11 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      ``lm_obs_problem`` and on ragged ones (O in 1, 5, 17 by P in 1, 31,
      4097), both Huber settings: within rtol 2e-4, atol 2e-3, with the
      errors and ms per call; two launches on the real input give the same
-     bits;
+     bits.  Then K5 (the pose-only LM in one launch) on phase 8's last
+     pose solve (N = 1024) against its plain version: inlier sets equal
+     or apart at the threshold only (at most 3), camera centres within
+     1.5e-5 m where they agree, two launches bit-equal, one launch a
+     call, with device and wall ms of both;
  11. parity with mapping on: the first 30 frames again on the CPU (the
      third keyframe and its local BA come at frame 26); the same lost
      pattern and keyframe insertions, and camera centres at track time
@@ -129,7 +133,8 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      10 frames again on a CPU ``SlamSystem`` (the same lost pattern and
      keyframes, camera centres within 1e-3 m); K1 on both images' last
      levels, K2 and K3 on their last inputs of the run identical to plain,
-     K4 within rtol 2e-4, atol 2e-3, each with device ms and its bound.
+     K4 within rtol 2e-4, atol 2e-3, K5 on the last pose solve (N = 2048)
+     as in phase 10, each with device ms and its bound.
      It prints frames/s and the median ms/frame after 10 warm-up frames,
      the synchronised ms of ``stereo_match`` and of the second
      extraction, keypoints and stereo depths per frame, keyframes and
@@ -265,6 +270,12 @@ toolkit.  It imports nothing of JAX.  Phases, each printing its line:
      cards or more, else a line saying it was not run.
 
 Each phase from 12 on prints the seconds since the start when it ends.
+Every path that tracks frames on the card (phases 5, 8, 12-15, 17-20)
+also counts ``optimize_pose``'s calls (``_pose_calls``) and requires one
+K5 launch per call and at least two calls a frame after the first (one
+with mapping off, phase 5; after the relocalization in phase 12; in its
+VO fallback, on the frames after the map is restored); the loop path of
+phase 13 launches none.
 
 Times per call are printed two ways (``ydorbslam_tpu_torch/testing.py``).
 "wall" (``wall_ms``) is CUDA events around 20 back-to-back calls, so the
@@ -289,8 +300,13 @@ input (the larger of its bytes over 3.35 TB/s and its operations over
 the H100's peak rate for them, see ``_bound``) and what binds it, and
 the time of one PyTorch call computing the same function (null: there
 is none); then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
-Any failure exits non-zero without the last line.
+Any failure exits non-zero without the last line.  A gate that fails in
+phases 1-12 stops the script; from phase 13 on, a failed phase prints
+``phase N FAILED`` and the phases after it still run (phase 21 on phase
+13's global BA, which phase 13 hands on even where its revisit gate
+fails), and the script fails at the end, naming each failed phase.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -338,6 +354,17 @@ DIST_OPS = 15  # per popcounted pair: 8 XOR and 7 adds, beside its 8 __popc
 UPDATE_OPS = 5  # per gated (pair, radius): compare, min, 3 selects
 K4_OPS_OBS = 725  # per observation: projection, residuals, Huber weight, Jacobians, 72 weighted 3-term row sums, 13 accumulations
 K4_ROWS_READ = 27  # input rows of the 32 that the observation pass reads
+# K5, per valid observation: a normal-equation pass (projection, residuals,
+# chi2, Jacobian rows scaled by the root weights, 21 + 6 three-term
+# accumulations) and a classification pass; 31 bytes read once.
+K5_OPS_PASS, K5_OPS_CLASSIFY, K5_BYTES_OBS = 160, 35, 31
+# K5 against plain and float64 (_k5_check): the benchmark's limit on the
+# camera-centre gap (slambench/limits, pose_gap_m); an inlier that flips sits
+# at the threshold, its raw chi2 at the float64 pose within K5_FLIP_CHI2 of
+# delta^2; with flips, the gap to float64 within K5_FLIP_GAP_M a flip (one
+# threshold observation dropped moved float64's centre by up to 6.8e-4 m on
+# testing.pose_problem at N = 1024 and 2048, seeds 0-5).
+POSE_GAP_M, K5_FLIP_CHI2, K5_FLIP_GAP_M = 1.5e-5, 0.05, 1e-3
 # Phase 12: the frames of each recovery path, replayed T_SHIFT s later.
 KIDNAP_REPLAY = range(40, 60)
 LOC_FRAMES = range(60, 106)
@@ -495,6 +522,15 @@ JAX_CPU_KF_KITTI_PIPE = 17
 JAX_CPU_LOOPS_KITTI_PIPE = 0
 
 
+class GateFailed(AssertionError):
+    """A gate of a phase failed after the phase had made what later phases
+    run on (``result``): the script goes on and fails at its end."""
+
+    def __init__(self, msg, result):
+        super().__init__(msg)
+        self.result = result
+
+
 def _bound(nbytes, lane_ops, popc=0.0):
     """The least ms an H100 could take for work that moves ``nbytes`` and
     does ``lane_ops`` lane operations and ``popc`` popcounts, and what
@@ -503,6 +539,45 @@ def _bound(nbytes, lane_ops, popc=0.0):
          "operations": max(lane_ops / LANE_OPS_S, popc / POPC_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+@contextlib.contextmanager
+def _pose_calls(count=None):
+    """Counts ``optimize_pose``'s calls through the modules that make them
+    (the tracker, the facade's relocalization, the pipelined step) while
+    the block runs, in ``count["calls"]`` (a new dict, or the caller's,
+    which may set it back to 0 where it resets the launch counts), and
+    keeps a copy of the last call's inputs in ``count["last"]``: on the
+    card each call must be one K5 launch."""
+    from ydorbslam_tpu_torch.slam import pipeline, system, tracking
+
+    count = {} if count is None else count
+    count.update(calls=0, last=None)
+    saved = [(mod, mod.optimize_pose) for mod in (tracking, system, pipeline)]
+
+    def counted(fn):
+        def f(cam, T_init, obs, *args, **kwargs):
+            count["calls"] += 1
+            count["last"] = (cam, T_init.clone(), type(obs)(*(t.clone() for t in obs)), args,
+                             kwargs)
+            return fn(cam, T_init, obs, *args, **kwargs)
+        return f
+
+    try:
+        for mod, fn in saved:
+            mod.optimize_pose = counted(fn)
+        yield count
+    finally:
+        for mod, fn in saved:
+            mod.optimize_pose = fn
+
+
+def _gate_pose_lm(label, launches, count, least):
+    """K5's launch gate: one ``pose_lm`` launch per ``optimize_pose`` call,
+    and at least ``least`` calls."""
+    if launches["pose_lm"] != count["calls"] or count["calls"] < least:
+        raise AssertionError(f"{label}: {launches['pose_lm']} pose_lm launches for "
+                             f"{count['calls']} optimize_pose calls, at least {least} expected")
 
 
 def _k1_work(levels, border):
@@ -581,6 +656,86 @@ def _same_k2(prob, check_ur, label):
     torch.cuda.synchronize()
     if not all(torch.equal(kk, pp) for kk, pp in zip((*k[0], *k[1]), (*p[0], *p[1]))):
         raise AssertionError(f"K2 differs from plain on {label}, check_ur={check_ur}")
+
+
+def _k5_check(label, call):
+    """K5 against the plain version and a float64 solve on one captured
+    ``optimize_pose`` input: each inlier set equal to the kernel's or apart
+    only at the threshold (at most 3 flips, each with its raw chi2 at the
+    float64 pose within ``K5_FLIP_CHI2`` of delta^2, ``n_in`` apart by no
+    more), the camera centre within the benchmark's 1.5e-5 m of plain's
+    where the sets agree, of float64's too unless plain is further from it
+    (then within twice plain's gap), and within ``K5_FLIP_GAP_M`` a flip of
+    float64's where they do not; two launches bit for bit, one
+    launch a call; then device and wall ms of both.  Returns the report's
+    fields and a line to print."""
+    import torch
+
+    from ydorbslam_tpu_torch.ops import kernels
+    from ydorbslam_tpu_torch.optim.pose import (
+        CHI2_MONO, CHI2_STEREO, _chi2, _flat_project, _weights, optimize_pose_plain,
+    )
+    from ydorbslam_tpu_torch.testing import device_ms, wall_ms
+
+    cam, T0, obs, args, kwargs = call
+    before = kernels.launch_counts()["pose_lm"]
+    k = kernels.pose_lm_cuda(cam, T0, obs, *args, **kwargs)
+    k2 = kernels.pose_lm_cuda(cam, T0, obs, *args, **kwargs)
+    p = optimize_pose_plain(cam, T0, obs, *args, **kwargs)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["pose_lm"] != before + 2:
+        raise AssertionError(f"K5 on {label}: not one launch a call")
+    if not all(torch.equal(a, b) for a, b in zip(k, k2)):
+        raise AssertionError(f"K5 on {label}: two launches differ")
+    f64 = lambda t: t.double().cpu() if t.is_floating_point() else t.cpu()  # noqa: E731
+    cam64 = cam._replace(**{f: f64(getattr(cam, f)) for f in cam._fields[:10]})
+    obs64 = type(obs)(*(f64(t) for t in obs))
+    d = optimize_pose_plain(cam64, f64(T0), obs64, *args, **kwargs)
+    r = _flat_project(cam64, d[0], obs64)[-1]
+    chi2 = _chi2(r, *_weights(obs64, torch.ones_like(obs64.valid)))
+    delta2 = torch.where(obs64.has_stereo, CHI2_STEREO, CHI2_MONO).double()
+    kin = k[1].cpu()
+    c = _centres([k[0].double().cpu().numpy(), p[0].double().cpu().numpy(), d[0].numpy()])
+    faults = []
+    for name, other, n_other, centre in (("plain", p[1].cpu(), int(p[2]), c[1]),
+                                         ("float64", d[1], int(d[2]), c[2])):
+        idx = torch.nonzero(kin != other)[:, 0]
+        gap = float(((c[0] - centre) ** 2).sum() ** 0.5)
+        far = idx[(chi2[idx] - delta2[idx]).abs() > K5_FLIP_CHI2].tolist()
+        limit = K5_FLIP_GAP_M * len(idx) if len(idx) else POSE_GAP_M
+        if name == "float64" and not len(idx):
+            # An ill-posed solve leaves float32 short of float64 whatever the
+            # order of its sums: the plain version's own gap, twice, bounds it.
+            limit = max(limit, 2 * float(((c[1] - centre) ** 2).sum() ** 0.5))
+        if len(idx) > 3 or far or abs(int(k[2]) - n_other) > len(idx) or \
+                (not gap < limit and (name == "float64" or not len(idx))):
+            faults.append(f"against {name}: {len(idx)} inliers differ ({far} away from the "
+                          f"threshold), n_in {int(k[2])} / {n_other}, camera-centre gap "
+                          f"{gap:.3e} m (limit {limit:.1e})")
+        if name == "plain":
+            flips, gap_p = len(idx), gap
+        else:
+            flips_d, gap_d = len(idx), gap
+    if faults:
+        raise AssertionError(f"K5 on {label}: " + "; ".join(faults))
+    n, valid = obs.valid.shape[0], int(obs.valid.sum())
+    E = kwargs.get("episodes", args[0] if args else 4)
+    I = kwargs.get("iters_per_episode", args[1] if len(args) > 1 else 10)
+    bound, by = _bound(n * K5_BYTES_OBS, valid * (E * (I + 1) * K5_OPS_PASS
+                                                   + E * K5_OPS_CLASSIFY))
+    ms = device_ms(lambda: kernels.pose_lm_cuda(cam, T0, obs, *args, **kwargs))
+    wall = wall_ms(lambda: kernels.pose_lm_cuda(cam, T0, obs, *args, **kwargs))
+    plain = device_ms(lambda: optimize_pose_plain(cam, T0, obs, *args, **kwargs),
+                      calls=2, reps=3, warm=1)
+    plain_wall = wall_ms(lambda: optimize_pose_plain(cam, T0, obs, *args, **kwargs),
+                         calls=2, reps=3, warm=1)
+    line = (f"K5 on {label} (N={n}, {valid} valid, {E} x {I}): n_in {int(k[2])} / plain "
+            f"{int(p[2])} / float64 {int(d[2])}, {flips} / {flips_d} inliers apart, camera-centre "
+            f"gap {gap_p:.3e} / {gap_d:.3e} m; two launches "
+            f"bitwise equal; ms per call kernel / plain: device {ms:.4f} / {plain:.3f}, wall "
+            f"{wall:.4f} / {plain_wall:.3f}; bound {bound:.5f} ms ({by}; the {E * (I + 2)} "
+            f"dependent passes set the time)")
+    return dict(max_abs_err=gap_p, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by), line
 
 
 def _same_k3(prob, mode, label):
@@ -744,14 +899,15 @@ def _phase12(system, frames, gt_poses, smi):
         # Kidnap: a blank frame, then frames 40-59 again, 200 s later.
         n_kf = system.n_keyframes
         kernels.reset_launch_counts()
-        ok_blank = system.track_rgbd(frames[-1][0] + 1.0 / 30.0, np.zeros((h, w), np.uint8),
-                                     np.zeros((h, w), np.uint16))
-        state_blank = system.tracking_state()
-        ok_rep, err_rep = [], []
-        for i in KIDNAP_REPLAY:
-            t, gray, depth = frames[i]
-            ok_rep.append(system.track_rgbd(t + T_SHIFT, gray, depth))
-            err_rep.append(centre_err(i))
+        with _pose_calls() as kid_pose:
+            ok_blank = system.track_rgbd(frames[-1][0] + 1.0 / 30.0,
+                                         np.zeros((h, w), np.uint8), np.zeros((h, w), np.uint16))
+            state_blank = system.tracking_state()
+            ok_rep, err_rep = [], []
+            for i in KIDNAP_REPLAY:
+                t, gray, depth = frames[i]
+                ok_rep.append(system.track_rgbd(t + T_SHIFT, gray, depth))
+                err_rep.append(centre_err(i))
         kid_launches = kernels.launch_counts()
 
         # The accepted relocalization again on the CPU, from the same map,
@@ -796,6 +952,8 @@ def _phase12(system, frames, gt_poses, smi):
     if kid_launches["fast_score_nms"] != 1 + len(KIDNAP_REPLAY) or calls[j]["k2"] < 1:
         raise AssertionError(f"kidnap: launches {kid_launches}, K2 in relocalization "
                              f"{calls[j]['k2']}")
+    # At least the relocalization's solve, then two a frame after it.
+    _gate_pose_lm("kidnap", kid_launches, kid_pose, 1 + 2 * (len(KIDNAP_REPLAY) - 1))
 
     card = calls[j]
     d_c = float(np.linalg.norm(_centres([card["T"]])[0]
@@ -816,14 +974,15 @@ def _phase12(system, frames, gt_poses, smi):
     system.activate_localization_mode()
     kernels.reset_launch_counts()
     ok_loc, err_loc, vo_loc, secs = [], [], [], []
-    for i in LOC_FRAMES:
-        t, gray, depth = frames[i]
-        t0 = time.perf_counter()
-        ok_loc.append(system.track_rgbd(t + T_SHIFT, gray, depth))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        err_loc.append(centre_err(i))
-        vo_loc.append(system.visual_odometry)
+    with _pose_calls() as loc_pose:
+        for i in LOC_FRAMES:
+            t, gray, depth = frames[i]
+            t0 = time.perf_counter()
+            ok_loc.append(system.track_rgbd(t + T_SHIFT, gray, depth))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            err_loc.append(centre_err(i))
+            vo_loc.append(system.visual_odometry)
     loc_launches = kernels.launch_counts()
     after = system.run_stats()
     fixed = ("keyframes_inserted", "map_points_live")
@@ -839,6 +998,7 @@ def _phase12(system, frames, gt_poses, smi):
             loc_launches["fast_score_nms"] != len(LOC_FRAMES) or \
             loc_launches["proj_best2"] < len(LOC_FRAMES):
         raise AssertionError(f"localization mode launches {loc_launches}")
+    _gate_pose_lm("localization mode", loc_launches, loc_pose, 2 * len(LOC_FRAMES))
 
     # The VO fallback: 3 % of the map points kept, then the map restored.
     n_kf = system.n_keyframes
@@ -846,12 +1006,14 @@ def _phase12(system, frames, gt_poses, smi):
     keep = torch.from_numpy(np.random.default_rng(12).random(system.map.M) < VO_KEEP).to(dev)
     system.map = system.map._replace(mp_valid=saved_valid & keep)
     kernels.reset_launch_counts()
-    ok_vo = [system.track_rgbd(frames[i][0] + T_SHIFT, *frames[i][1:]) for i in VO_FRAMES]
-    vo_on = system.visual_odometry
-    err_vo = centre_err(VO_FRAMES[-1])
-    system.map = system.map._replace(mp_valid=saved_valid)
-    ok_back = [system.track_rgbd(frames[i][0] + T_SHIFT, *frames[i][1:]) for i in BACK_FRAMES]
-    vo_back = system.visual_odometry
+    with _pose_calls() as vo_pose:
+        ok_vo = [system.track_rgbd(frames[i][0] + T_SHIFT, *frames[i][1:]) for i in VO_FRAMES]
+        vo_on = system.visual_odometry
+        err_vo = centre_err(VO_FRAMES[-1])
+        system.map = system.map._replace(mp_valid=saved_valid)
+        ok_back = [system.track_rgbd(frames[i][0] + T_SHIFT, *frames[i][1:])
+                   for i in BACK_FRAMES]
+        vo_back = system.visual_odometry
     vo_launches = kernels.launch_counts()
     system.deactivate_localization_mode()
     print(f"phase 12 VO fallback: {VO_KEEP:.0%} of the map points kept, frames "
@@ -865,6 +1027,7 @@ def _phase12(system, frames, gt_poses, smi):
     if vo_launches["pair_best2"] or vo_launches["lm_obs"] or not vo_launches["proj_best2"] or \
             vo_launches["fast_score_nms"] != len(VO_FRAMES) + len(BACK_FRAMES):
         raise AssertionError(f"VO fallback launches {vo_launches}")
+    _gate_pose_lm("VO fallback", vo_launches, vo_pose, 2 * len(BACK_FRAMES))
 
     # What a relocalization's linear algebra and a keyframe's index update cost.
     g = torch.Generator().manual_seed(5)
@@ -888,7 +1051,8 @@ def _phase13(smi, report):
     """Phase 13: loop closing on the card over the revisit workload, the
     accepted loop event again on the CPU, and K2/K4 on the loop path's
     captured inputs.  Fills ``report[k]["loop_launches"]``; any gate that
-    fails raises.  Returns what phase 21 runs on: the first global BA as
+    fails raises (the revisit's tracked frames and ATE at the phase's end,
+    as ``GateFailed`` with the result).  Returns what phase 21 runs on: the first global BA as
     ``_start_global_ba`` armed it (``prob``, ``T``, ``p``, ``lam``), the
     camera and configuration, the final map and retrieval index, and the
     last keyframe's id."""
@@ -1067,19 +1231,21 @@ def _phase13(smi, report):
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
         kernels.reset_launch_counts()
-        for i, (t, gray, depth) in enumerate(frames):
+        with _pose_calls() as pose_calls:
+            for i, (t, gray, depth) in enumerate(frames):
+                t0 = time.perf_counter()
+                oks.append(bool(system.track_rgbd(t, gray, depth)))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                T = system.tracker.T_cw.cpu().numpy().astype(np.float64)
+                errs.append(float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3]
+                                                 - seq.gt_center_est_frame(i))))
+                if loop_frame is None and system.loop_closer.n_loops_closed:
+                    loop_frame = i
             t0 = time.perf_counter()
-            oks.append(bool(system.track_rgbd(t, gray, depth)))
+            system.shutdown()
             torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            T = system.tracker.T_cw.cpu().numpy().astype(np.float64)
-            errs.append(float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3] - seq.gt_center_est_frame(i))))
-            if loop_frame is None and system.loop_closer.n_loops_closed:
-                loop_frame = i
-        t0 = time.perf_counter()
-        system.shutdown()
-        torch.cuda.synchronize()
-        shutdown_ms = (time.perf_counter() - t0) * 1e3
+            shutdown_ms = (time.perf_counter() - t0) * 1e3
         launches = kernels.launch_counts()
     finally:
         for mod, attr, fn in saved:
@@ -1144,14 +1310,18 @@ def _phase13(smi, report):
                              f"{len(ms['merge'])} merges, in flight {impl._gba is not None}")
     if not post < 0.5 * pre:
         raise AssertionError(f"loop closing: best error after {post} not under half of {pre}")
+    # The revisit's accuracy gate is raised at the phase's end, after its
+    # other gates and with phase 21's inputs (GateFailed).
+    revisit_fault = None
     if not ate <= 1.5 * JAX_CPU_ATE_REVISIT or tracked < JAX_CPU_TRACKED_REVISIT - 2:
-        raise AssertionError(f"loop closing: ATE {ate}, tracked {tracked}")
+        revisit_fault = f"loop closing: ATE {ate}, tracked {tracked}"
     fuse = system.cfg.capacity.loop_fuse_group
     if loop_launch.get("proj_best2", 0) != 2 * n_verify + fuse * n_corr or \
             loop_launch.get("lm_obs", 0) != 6 * n_chunks or loop_launch.get("pair_best2", 0) or \
-            loop_launch.get("fast_score_nms", 0):
+            loop_launch.get("fast_score_nms", 0) or loop_launch.get("pose_lm", 0):
         raise AssertionError(f"loop path launches {loop_launch}: {n_verify} verifications, "
                              f"{n_corr} corrections, {n_chunks} chunks")
+    _gate_pose_lm("loop closing run", launches, pose_calls, 2 * (tracked - 1))
 
     # The accepted loop event again on the CPU.
     cpu = SlamSystem(_config(), Sensor.RGBD, enable_mapping=True, enable_loop_closing=True,
@@ -1239,8 +1409,11 @@ def _phase13(smi, report):
         report[k]["loop_launches"] = loop_launch.get(k, 0)
     m = system.map
     last_kf = int(torch.argmax(torch.where(m.kf_valid, m.kf_frame_id, -1)))
-    return dict(gba=captured["gba"], cam=system.cam, cfg=system.cfg, map=m,
+    loop = dict(gba=captured["gba"], cam=system.cam, cfg=system.cfg, map=m,
                 retrieval=system.retrieval, kf=last_kf)
+    if revisit_fault is not None:
+        raise GateFailed(revisit_fault, loop)
+    return loop
 
 
 def _graph_gate(graph, smi):
@@ -1390,12 +1563,13 @@ def _phase14(smi, report):
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
         kernels.reset_launch_counts()
-        for t, left, right in frames:
-            t0 = time.perf_counter()
-            system.track_stereo(t, left, right)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            kfs.append(system.n_keyframes)
+        with _pose_calls() as pose_calls:
+            for t, left, right in frames:
+                t0 = time.perf_counter()
+                system.track_stereo(t, left, right)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                kfs.append(system.n_keyframes)
         launches = kernels.launch_counts()
     finally:
         for mod, attr, fn in saved:
@@ -1441,6 +1615,7 @@ def _phase14(smi, report):
             launches["proj_best2"] < 2 * (len(frames) - 1):
         raise AssertionError(f"stereo path launches {launches}, expected {expect} and "
                              f">= {2 * (len(frames) - 1)} proj_best2")
+    _gate_pose_lm("stereo path", launches, pose_calls, 2 * (len(frames) - 1))
     if max(waits) != 0 or len(waits) != len(frames):
         raise AssertionError(f"stereo_match waited on the card: {waits} at {sites}")
 
@@ -1531,6 +1706,9 @@ def _phase14(smi, report):
     lines.append(f"K4 local BA {tuple(inp.shape)}: within rtol {K4_RTOL}, atol {K4_ATOL}, max "
                  f"abs error {err4:.3e}; device {dev:.4f} ms; plain device {plain:.4f} ms; bound "
                  f"{bms:.5f} ms ({bby})")
+    k5, line = _k5_check("the stereo path's last pose solve", pose_calls["last"])
+    report.setdefault("pose_lm", {}).update(stereo=k5)
+    lines.append(line)
     print("phase 14 kernels on the stereo path's inputs: " + " | ".join(lines) + f" | {smi}",
           flush=True)
     for k in report:
@@ -1628,7 +1806,7 @@ def _phase15(smi, report):
         PeriodicViewer.maybe_draw = draw
         system_mod.mapping_step = step
         kernels.reset_launch_counts()
-        with contextlib.redirect_stdout(text):
+        with contextlib.redirect_stdout(text), _pose_calls() as pose_calls:
             system = run_tum_rgbd.main(args)
         launches = kernels.launch_counts()
     finally:
@@ -1689,6 +1867,7 @@ def _phase15(smi, report):
             launches["proj_best2"] < 2 * (len(frames) - 1):
         raise AssertionError(f"TUM runner launches {launches}, expected {expect} and "
                              f">= {2 * (len(frames) - 1)} proj_best2")
+    _gate_pose_lm("TUM runner", launches, pose_calls, 2 * (len(frames) - 1))
     if files != expect_files or len(draw_ms) != len(drawn) or \
             len(waits) != len(frames) - len(drawn) or max(waits) != 0:
         raise AssertionError(f"viewer: files {files}, drawn {len(draw_ms)}, waits {waits}")
@@ -2066,7 +2245,9 @@ def _phase17(smi, report):
         # The repeat run counts the waits and captures the burst (the run's
         # first deferred BA, after frame 38) with its drain's mapping_prep calls.
         probe.reset(count=count, capture=count)
-        out = _bench_run(system, frames)
+        with _pose_calls() as pose:
+            out = _bench_run(system, frames)
+        probe.calls["pose"] = pose["calls"]
         return out, kernels.launch_counts(), list(probe.infos), dict(probe.calls)
 
     with _PipeProbe("track_rgbd_pipelined") as probe:
@@ -2201,8 +2382,9 @@ def _phase17(smi, report):
         raise AssertionError(f"pipelined path: {stats['keyframes_inserted']} keyframes, JAX "
                              f"{JAX_CPU_KF_PIPE} +- {TUM_KF_BAND}")
     expect = dict(fast_score_nms=n, proj_best2=3 * n + calls["reloc_k2"], pair_best2=3 * n_prep,
-                  lm_obs=17 * n_fin)
-    if launches != expect or n_fin != stats["local_ba_runs"] or n_fin < 1 or n_prep < 1:
+                  lm_obs=17 * n_fin, pose_lm=calls["pose"])
+    if launches != expect or n_fin != stats["local_ba_runs"] or n_fin < 1 or n_prep < 1 or \
+            calls["pose"] < 2 * (n - 1):
         raise AssertionError(f"pipelined path launches {launches}, expected {expect}")
     over = {k: max(v) for k, v in waits.items() if v and max(v) > PIPE_SYNC_MAX[k]}
     if over or not waits["dispatch"] or max(drained_waits, default=0) > PIPE_SYNC_MAX["dispatch"]:
@@ -2257,7 +2439,7 @@ def _phase18(smi, report):
         orig["pre"](self)
         pre["s"] = time.perf_counter() - t0
         kernels.reset_launch_counts()  # the run's counts start after it
-        calls.update(prep=0, finish=0)
+        calls.update(prep=0, finish=0, calls=0)
 
     def shutdown(self):
         t0 = time.perf_counter()
@@ -2280,7 +2462,7 @@ def _phase18(smi, report):
         SlamSystem.track_rgbd_pipelined, SlamSystem.precompile = track, precompile
         SlamSystem.shutdown = shutdown
         system_mod.mapping_prep, system_mod.mapping_finish = prep, finish
-        with contextlib.redirect_stdout(text):
+        with contextlib.redirect_stdout(text), _pose_calls(calls):
             system = run_tum_rgbd.main(args)
         launches = kernels.launch_counts()
     finally:
@@ -2325,6 +2507,7 @@ def _phase18(smi, report):
             launches["proj_best2"] < 3 * len(frames) or calls["finish"] < 1:
         raise AssertionError(f"TUM runner --pipelined launches {launches}, expected {expect} "
                              f"and >= {3 * len(frames)} proj_best2")
+    _gate_pose_lm("TUM runner --pipelined", launches, calls, 2 * (len(frames) - 1))
     for k in report:
         report[k]["tum_pipe_launches"] = launches.get(k, 0)
     tmp.cleanup()
@@ -2393,14 +2576,16 @@ def _phase19(smi, report):
         secs, drained = [], []
         recorder.enable()
         try:
-            for f in frames:
+            with _pose_calls() as pose:
+                for f in frames:
+                    t0 = time.perf_counter()
+                    system.track_stereo_pipelined(*f)
+                    secs.append(time.perf_counter() - t0)
+                    drained.append(not system._pending)
                 t0 = time.perf_counter()
-                system.track_stereo_pipelined(*f)
-                secs.append(time.perf_counter() - t0)
-                drained.append(not system._pending)
-            t0 = time.perf_counter()
-            system.shutdown()
-            shut_s = time.perf_counter() - t0
+                system.shutdown()
+                shut_s = time.perf_counter() - t0
+            probe.calls["pose"] = pose["calls"]
         finally:
             spans, _ = recorder.take()
         return (secs, drained, shut_s, spans), kernels.launch_counts()
@@ -2598,8 +2783,9 @@ def _phase19(smi, report):
         raise AssertionError(f"pipelined stereo: the drain's deferred BA on the card and the CPU "
                              f"disagree beyond the card's own spread ({ba_d} vs {spread})")
     expect = dict(fast_score_nms=2 * n, proj_best2=3 * n + calls["reloc_k2"],
-                  pair_best2=3 * n_prep, lm_obs=17 * n_fin)
-    if launches != expect or n_fin != stats["local_ba_runs"] or n_fin < 1:
+                  pair_best2=3 * n_prep, lm_obs=17 * n_fin, pose_lm=calls["pose"])
+    if launches != expect or n_fin != stats["local_ba_runs"] or n_fin < 1 or \
+            calls["pose"] < 2 * (n - 1):
         raise AssertionError(f"pipelined stereo launches {launches}, expected {expect}")
     over = {k: max(v) for k, v in waits.items() if v and max(v) > PIPE_SYNC_MAX[k]}
     if over or not waits["dispatch"] or max(drained_waits, default=0) > PIPE_SYNC_MAX["dispatch"]:
@@ -2653,7 +2839,7 @@ def _phase20(smi, report):
         orig["pre"](self)
         pre["s"] = time.perf_counter() - t0
         kernels.reset_launch_counts()  # the run's counts start after it
-        calls.update(prep=0, finish=0)
+        calls.update(prep=0, finish=0, calls=0)
 
     def shutdown(self):
         t0 = time.perf_counter()
@@ -2676,7 +2862,7 @@ def _phase20(smi, report):
         SlamSystem.track_stereo_pipelined, SlamSystem.precompile = track, precompile
         SlamSystem.shutdown = shutdown
         system_mod.mapping_prep, system_mod.mapping_finish = prep, finish
-        with contextlib.redirect_stdout(text):
+        with contextlib.redirect_stdout(text), _pose_calls(calls):
             system = run_kitti_stereo.main(args)
         launches = kernels.launch_counts()
     finally:
@@ -2723,6 +2909,7 @@ def _phase20(smi, report):
             launches["lm_obs"] < 17 * calls["finish"] or calls["finish"] < 1:
         raise AssertionError(f"KITTI runner --pipelined launches {launches}: K1 {2 * n}, K2 >= "
                              f"{3 * n}, K3 {3 * calls['prep']}, K4 >= {17 * calls['finish']}")
+    _gate_pose_lm("KITTI runner --pipelined", launches, calls, 2 * (n - 1))
     for k in report:
         report[k]["kitti_pipe_launches"] = launches.get(k, 0)
 
@@ -3165,7 +3352,8 @@ def main() -> int:
 
     # 5. the mapping-off path
     kernels.reset_launch_counts()
-    system, secs, poses, lost, _ = _run(frames[:N_OFF], "cuda", mapping=False)
+    with _pose_calls() as pose_off:
+        system, secs, poses, lost, _ = _run(frames[:N_OFF], "cuda", mapping=False)
     launches = kernels.launch_counts()
     n_lost = sum(lost)
     ate = ate_rmse(_centres(poses), gt_centres[:N_OFF])
@@ -3181,6 +3369,8 @@ def main() -> int:
         raise AssertionError(f"mapping-off path: lost {n_lost}, ATE {ate}")
     if launches["fast_score_nms"] != N_OFF or launches["proj_best2"] < N_OFF - 1:
         raise AssertionError(f"mapping-off path did not go through the kernels: {launches}")
+    # Mapping off: the frame's solve against the last frame's landmarks only.
+    _gate_pose_lm("mapping-off path", launches, pose_off, N_OFF - 1)
     off_poses, off_lost = poses, lost
 
     # 6. per-layer times, inside a real tracking run of frames 0-39: the
@@ -3248,7 +3438,8 @@ def main() -> int:
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
         kernels.reset_launch_counts()
-        system, secs, poses, lost, kfs = _run(frames, "cuda", mapping=True)
+        with _pose_calls() as pose_main:
+            system, secs, poses, lost, kfs = _run(frames, "cuda", mapping=True)
         launches = kernels.launch_counts()
     finally:
         for mod, attr, fn in saved:
@@ -3289,6 +3480,7 @@ def main() -> int:
             launches["proj_best2"] < 2 * (len(frames) - 1):
         raise AssertionError(f"main path launches {launches}, expected {expect} and "
                              f">= {2 * (len(frames) - 1)} proj_best2")
+    _gate_pose_lm("main path", launches, pose_main, 2 * (len(frames) - 1))
     for k in kernels.launch_counts():
         report.setdefault(k, {})["launches"] = launches[k]
 
@@ -3390,6 +3582,9 @@ def main() -> int:
           f"{k4_ms:.4f} / {k4_plain:.4f}, device {k4_dev:.4f} / {k4_plain_dev:.4f}; random "
           f"wall {k4_rnd_ms:.4f} / {k4_rnd_plain:.4f}, device {k4_rnd_dev:.4f}; bound on the "
           f"real input {k4_bound:.5f} ms ({k4_by}) | {smi}", flush=True)
+    k5, line = _k5_check("phase 8's last pose solve", pose_main["last"])
+    report["pose_lm"].update(k5)
+    print(f"phase 10 {line} | {smi}", flush=True)
 
     # 11. parity against the CPU, mapping on
     cpu_sys, _, poses_cpu, lost_cpu, kfs_cpu = _run(frames[:N_PAR_MAP], "cpu", mapping=True)
@@ -3421,14 +3616,32 @@ def main() -> int:
     # 20. the KITTI runner with --pipelined at its own configuration.
     print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     # 21. the sharded paths on the card, on phase 13's global BA and map.
-    loop = _phase13(smi, report)
-    print(f"phase 13 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # From here a phase whose gate fails is reported and the phases after it
+    # still run; the script fails at the end, naming each failed phase.
+    failed = []
+
+    def attempt(number, phase, *args):
+        try:
+            return phase(*args)
+        except AssertionError as e:
+            traceback.print_exc()
+            print(f"phase {number} FAILED: {e}", flush=True)
+            failed.append(number)
+            return e.result if isinstance(e, GateFailed) else None
+        finally:
+            print(f"phase {number} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    loop = attempt(13, _phase13, smi, report)
     for number, phase in ((14, _phase14), (15, _phase15), (16, _phase16), (17, _phase17),
                           (18, _phase18), (19, _phase19), (20, _phase20)):
-        phase(*((smi,) if number == 16 else (smi, report)))
-        print(f"phase {number} done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    _phase21(smi, report, loop)
-    print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        attempt(number, phase, *((smi,) if number == 16 else (smi, report)))
+    if loop is None:
+        print("phase 21 not run: phase 13 made no global BA to run it on", flush=True)
+        failed.append(21)
+    else:
+        attempt(21, _phase21, smi, report, loop)
+    if failed:
+        raise AssertionError(f"phases failed: {failed}")
 
     rows = []
     for k, src, rep in (
@@ -3440,6 +3653,8 @@ def main() -> int:
          "ydorbslam_tpu/ops/pallas_kernels.py:463"),
         ("lm_obs", "ydorbslam_tpu_torch/csrc/lm_obs.cu",
          "ydorbslam_tpu/optim/lm_kernel.py:149"),
+        ("pose_lm", "ydorbslam_tpu_torch/csrc/pose_lm.cu",
+         "none: ydorbslam_tpu/optim/pose.py optimize_pose is one jitted XLA program"),
     ):
         r = report[k]
         rows.append(dict(name=k, route="cuda", source=src, replaces=rep,

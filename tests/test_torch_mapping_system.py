@@ -149,7 +149,7 @@ def test_mapping_step_matches_jax(runs):
 
 def test_cpu_mapping_run_launches_no_kernel(runs):
     assert runs["launches"] == {"fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0,
-                                "lm_obs": 0}
+                                "lm_obs": 0, "pose_lm": 0}
 
 
 def test_unported_paths_raise(frames, runs):

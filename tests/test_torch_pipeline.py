@@ -406,7 +406,7 @@ def test_bootstrap_loss_matches_jax(runs):
 
 def test_cpu_pipelined_run_launches_no_kernel(runs):
     assert runs["launches"] == {"fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0,
-                                "lm_obs": 0}
+                                "lm_obs": 0, "pose_lm": 0}
 
 
 # ----------------------------------------------------------------------

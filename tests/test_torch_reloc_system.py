@@ -191,7 +191,7 @@ def test_visual_odometry_fallback_like_jax(seq, jax_run, port_run):
 
 def test_cpu_run_launches_no_kernel(port_run):
     assert port_run["launches"] == {"fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0,
-                                    "lm_obs": 0}
+                                    "lm_obs": 0, "pose_lm": 0}
 
 
 def test_reset_clears_the_index_and_keeps_the_mode(port_run):

@@ -97,7 +97,8 @@ def test_vo_slice_matches_jax(seq, runs):
 
 def test_cpu_run_launches_no_kernel(runs):
     # The whole 20-frame CPU run went through the plain versions.
-    assert runs[2] == {"fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0, "lm_obs": 0}
+    assert runs[2] == {"fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0, "lm_obs": 0,
+                       "pose_lm": 0}
 
 
 def test_step_from_jax_state(seq, runs):

@@ -127,4 +127,6 @@ def load() -> ctypes.CDLL:
     lib.ydorb_pair_best2.restype = i
     lib.ydorb_lm_obs.argtypes = [p, i, i, p, p, i, p]
     lib.ydorb_lm_obs.restype = i
+    lib.ydorb_pose_lm.argtypes = [p] * 14 + [i] * 4 + [p]
+    lib.ydorb_pose_lm.restype = i
     return lib

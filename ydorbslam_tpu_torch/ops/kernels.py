@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels (K1-K4) with launch counts.
+"""Wrappers of the hand-written CUDA kernels (K1-K5) with launch counts.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream of the
@@ -9,7 +9,7 @@ at import.
 ``launch_counts()`` reports how many times each kernel was launched
 since ``reset_launch_counts()``; a wrapper adds one exactly where it
 launches.  The plain versions (``ops.fast``, ``ops.hamming``,
-``optim.lm_kernel``) never touch the counts.
+``optim.lm_kernel``, ``optim.pose``) never touch the counts.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 from .. import _build
 
 _LAUNCHES: Dict[str, int] = {
-    "fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0, "lm_obs": 0,
+    "fast_score_nms": 0, "proj_best2": 0, "pair_best2": 0, "lm_obs": 0, "pose_lm": 0,
 }
 
 
@@ -220,3 +220,44 @@ def lm_obs_cuda(inp: torch.Tensor):
     _LAUNCHES["lm_obs"] += 1
     _raise_on(err, "lm_obs")
     return outq, outp
+
+
+_CAM_FIELDS = ("fx", "fy", "cx", "cy", "bf")
+
+
+def pose_lm_cuda(cam, T_cw_init: torch.Tensor, obs, episodes: int = 4,
+                 iters_per_episode: int = 10):
+    """K5 on the card: the whole pose-only LM in one launch; same contract
+    as ``optim.pose.optimize_pose_plain`` -> (T_cw (4, 4) float32, inlier
+    mask (N,) bool, n_inliers () int64), all on the device, equal to the
+    plain version's up to float32 rounding.  The camera's fields are read
+    on the device: nothing is read back to the host."""
+    N = obs.valid.shape[0] if obs.valid.dim() == 1 else -1
+    dev = T_cw_init.device
+    inputs = ((T_cw_init, "T_cw_init", torch.float32, (4, 4)),
+              (obs.p_w, "p_w", torch.float32, (N, 3)),
+              (obs.obs_uvr, "obs_uvr", torch.float32, (N, 3)),
+              (obs.inv_sigma2, "inv_sigma2", torch.float32, (N,)),
+              (obs.has_stereo, "has_stereo", torch.bool, (N,)),
+              (obs.valid, "valid", torch.bool, (N,)),
+              *((getattr(cam, k), f"cam.{k}", torch.float32, ()) for k in _CAM_FIELDS))
+    for t, name, dtype, shape in inputs:
+        if t.dtype != dtype or t.shape != shape or t.device != dev or not t.is_contiguous():
+            _check(t, f"pose_lm {name}", dtype, shape)  # names what is wrong
+            raise ValueError("pose_lm: inputs on different devices")
+    if dev.type != "cuda":
+        raise ValueError(f"pose_lm: expected CUDA tensors, got {dev}")
+    if not (0 <= N < 2**28 and 0 <= episodes < 2**20 and 0 <= iters_per_episode < 2**20):
+        raise ValueError(f"pose_lm: unsupported N={N}, episodes={episodes}, "
+                         f"iters_per_episode={iters_per_episode}")
+    T = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    inlier = torch.empty((N,), dtype=torch.bool, device=dev)
+    n_in = torch.empty((), dtype=torch.int64, device=dev)
+    err = _lib().ydorb_pose_lm(
+        *(t.data_ptr() for t, *_ in inputs), T.data_ptr(), inlier.data_ptr(), n_in.data_ptr(),
+        N, int(episodes), int(iters_per_episode), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    _LAUNCHES["pose_lm"] += 1
+    _raise_on(err, "pose_lm")
+    return T, inlier, n_in

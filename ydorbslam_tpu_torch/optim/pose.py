@@ -15,6 +15,11 @@ the 6x6 damped system is solved by Cholesky (``cholesky_ex``, which
 does not check errors on the host) and two triangular solves.  A
 failed factorization gives a non-finite step whose cost never wins,
 so the step is rejected and the damping grows.
+
+``optimize_pose`` dispatches on the device: CUDA tensors take K5, the
+whole solve in one launch (``csrc/pose_lm.cu``, ``ops.kernels.
+pose_lm_cuda``); CPU tensors take ``optimize_pose_plain``, the code
+below, which K5 is held to.
 """
 from __future__ import annotations
 
@@ -138,7 +143,29 @@ def optimize_pose(
     iters_per_episode: int = 10,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (T_cw (4,4), inlier mask (N,), n_inliers ()), all on the
-    device; the count is matches minus outliers."""
+    device; the count is matches minus outliers.  CUDA tensors launch K5
+    (float32 only; another dtype raises), CPU tensors take
+    ``optimize_pose_plain``."""
+    if T_cw_init.is_cuda:
+        from ..ops.kernels import pose_lm_cuda
+
+        return pose_lm_cuda(
+            cam, T_cw_init.contiguous(), PoseObservations(*(t.contiguous() for t in obs)),
+            episodes, iters_per_episode,
+        )
+    if T_cw_init.device.type != "cpu":
+        raise ValueError(f"optimize_pose: unsupported device {T_cw_init.device}")
+    return optimize_pose_plain(cam, T_cw_init, obs, episodes, iters_per_episode)
+
+
+def optimize_pose_plain(
+    cam: CameraIntrinsics,
+    T_cw_init: torch.Tensor,
+    obs: PoseObservations,
+    episodes: int = 4,
+    iters_per_episode: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ``optimize_pose``, on any device and dtype."""
     delta2 = torch.where(
         obs.has_stereo,
         torch.full((), CHI2_STEREO, dtype=torch.float32, device=T_cw_init.device),

@@ -1057,9 +1057,7 @@ class SlamSystem:
         self.stats.keyframes_culled += len(culled)
         ids = np.full((SNAP_CULL_CAP,), -1, np.int64)
         ids[: len(culled)] = sorted(culled)[:SNAP_CULL_CAP]
-        with trace.wait("upload_culled"):
-            ids = torch.from_numpy(ids).to(self.device)
-        self.retrieval = remove_keyframes(self.retrieval, ids)
+        self.retrieval = remove_keyframes(self.retrieval, self._upload(ids))
         if self.ref_kf in culled:
             p = int(parent[self.ref_kf])
             if p >= 0:

@@ -5,8 +5,10 @@ numpy arrays (random, tie-heavy, none or exactly one column passing),
 which ``tests/test_torch_best2_merge.py`` feeds to the plain versions on
 the CPU and ``chip_smoke.py`` and ``tools/time_kernels.py`` to the
 kernels on the card; ``lm_obs_problem`` makes a seeded K4 input for the
-last two, and ``pose_graph_problem`` a seeded essential graph with
-duplicate edges and high degrees.  ``wall_ms`` and ``device_ms`` time a call on the card with
+last two, ``pose_problem`` a seeded pose-only LM input (K5) at the
+KITTI-00 camera for ``tests/test_torch_pose_kernel.py``, and
+``pose_graph_problem`` a seeded essential graph with duplicate edges and
+high degrees.  ``wall_ms`` and ``device_ms`` time a call on the card with
 and without the host's dispatch.  ``make_stereo_frames`` renders the
 stereo workload: a rectified pair sequence at the KITTI-00 camera.
 ``write_tum_sequence`` writes RGB-D frames to disk as a TUM sequence
@@ -216,6 +218,57 @@ def lm_obs_problem(rng, O, P, C=96):
     inp[21] = 1.0
     inp[22:27] = np.array([500.0, 500.0, 320.0, 240.0, 50.0])[:, None, None]
     return inp
+
+
+POSE_KINDS = ("random", "no_valid", "mono", "stereo", "outliers", "behind")
+
+
+def pose_problem(rng, n, kind="random"):
+    """A pose-only LM input (K5, ``optim.pose``) at the KITTI-00 camera:
+    n landmarks 4-40 m ahead seen from a known pose (0.05 rad, ~1 m),
+    observed with the pixel noise of their octave (8 levels at 1.2), 60 %
+    stereo, 95 % valid and 15 % gross outliers (10-40 px off); the LM
+    starts ~0.02 rad and ~0.1 m away.  ``kind`` changes one thing:
+    "no_valid" (no valid observation), "mono" / "stereo" (all of one
+    kind), "outliers" (40 % gross outliers), "behind" (a fifth of the
+    points behind the camera, still valid).  Returns (observations dict
+    of numpy arrays with the fields of ``PoseObservations``, T0 (4, 4)
+    float32, T_true (4, 4) float64)."""
+    if kind not in POSE_KINDS:
+        raise ValueError(f"pose_problem: kind must be one of {POSE_KINDS}, got {kind!r}")
+    fx, cx, cy, bf = KITTI00["fx"], KITTI00["cx"], KITTI00["cy"], KITTI00["bf"]
+    T_true = np.eye(4)
+    T_true[:3, :3] = _rodrigues(np.array([[0.03, -0.04, 0.01]]))[0]
+    T_true[:3, 3] = [0.4, -0.1, 0.9]
+    p_c = np.stack([rng.uniform(-15, 15, n), rng.uniform(-3, 3, n), rng.uniform(4, 40, n)], -1)
+    octave = rng.integers(0, 8, n)
+    sigma = 1.2 ** octave
+    u = fx * p_c[:, 0] / p_c[:, 2] + cx + rng.normal(0, 1, n) * sigma
+    v = fx * p_c[:, 1] / p_c[:, 2] + cy + rng.normal(0, 1, n) * sigma
+    ur = u - bf / p_c[:, 2] + rng.normal(0, 1, n) * sigma
+    bad = rng.random(n) < (0.4 if kind == "outliers" else 0.15)
+    u[bad] += rng.choice([-1.0, 1.0], bad.sum()) * rng.uniform(10, 40, bad.sum())
+    if kind == "behind":
+        back = rng.random(n) < 0.2
+        p_c[back, 2] = -p_c[back, 2]
+    has_stereo = rng.random(n) < 0.6
+    if kind in ("mono", "stereo"):
+        has_stereo[:] = kind == "stereo"
+    valid = rng.random(n) < 0.95
+    if kind == "no_valid":
+        valid[:] = False
+    p_w = (p_c - T_true[:3, 3]) @ T_true[:3, :3]
+    obs = dict(
+        p_w=p_w.astype(np.float32),
+        obs_uvr=np.stack([u, v, np.where(has_stereo, ur, -1.0)], -1).astype(np.float32),
+        inv_sigma2=(1.0 / sigma ** 2).astype(np.float32),
+        has_stereo=has_stereo,
+        valid=valid,
+    )
+    T0 = np.eye(4)
+    T0[:3, :3] = _rodrigues(np.array([[-0.012, 0.015, 0.008]]))[0]
+    T0[:3, 3] = [0.06, -0.05, 0.07]
+    return obs, (T0 @ T_true).astype(np.float32), T_true
 
 
 def pose_graph_problem(rng, V, n_offsets, n_extra, n_dup):
